@@ -1,0 +1,106 @@
+"""Whole-image and overlap-tile inference (counterpart of
+`grlir.engines.inference`, without the device mesh).
+
+Tiles share one shape and run in fixed-size groups; the overlapping outputs
+are averaged on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+
+def reflect_pad_to(img: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
+    """Pad (..., H, W, C) to target (H', W') bottom/right with reflect (edge
+    when a pad exceeds the image, numpy's reflect limit).
+
+    INVARIANT: pad an image to its canonical shape in ONE reflect.  GRL's
+    stripe attention is global over the padded canvas, so chained pads change
+    the restored output everywhere, not only at the borders."""
+    h, w = img.shape[-3], img.shape[-2]
+    ph, pw = target_hw[0] - h, target_hw[1] - w
+    if ph == 0 and pw == 0:
+        return img
+    if ph < 0 or pw < 0:
+        raise ValueError(f"cannot pad {img.shape} to {target_hw}")
+    pad = [(0, 0)] * (img.ndim - 3) + [(0, ph), (0, pw), (0, 0)]
+    mode = "reflect" if (ph < h and pw < w) else "edge"
+    return np.pad(img, pad, mode=mode)
+
+
+class Restorer:
+    """Runs a model on numpy NHWC images, whole or in overlapping tiles.
+
+    model: NHWC tensor in [0, 1] on `device` -> NHWC tensor (a GRL).
+    tile=0 runs whole images; shape_bucket pads whole images up to the next
+    multiple (one reflect) and crops the output, so assorted sizes share a
+    few shapes.  Calls run under torch.no_grad()."""
+
+    def __init__(self, model: Callable[[torch.Tensor], torch.Tensor],
+                 device, scale: int = 1, tile: int = 0,
+                 tile_overlap: int = 0, tile_batch: int = 1,
+                 shape_bucket: int = 0):
+        self.model = model
+        self.device = torch.device(device)
+        self.scale = scale
+        self.tile = tile
+        self.tile_overlap = tile_overlap
+        self.tile_batch = tile_batch
+        self.shape_bucket = shape_bucket
+
+    def _run(self, img: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
+        with torch.no_grad():
+            y = self.model(x.to(self.device))
+            return y.float().cpu().numpy()
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        """img: (B, H, W, C) float32 in [0, 1] -> (B, H*scale, W*scale, C_out)."""
+        if self.tile == 0:
+            if self.shape_bucket:
+                return self._forward_bucketed(img)
+            return self._run(img)
+        return self.forward_tile(img)
+
+    def _forward_bucketed(self, img: np.ndarray) -> np.ndarray:
+        _, h, w, _ = img.shape
+        m = self.shape_bucket
+        out = self._run(reflect_pad_to(img, (h + (-h % m), w + (-w % m))))
+        return out[:, :h * self.scale, :w * self.scale]
+
+    def forward_tile(self, img: np.ndarray) -> np.ndarray:
+        b, h, w, _ = img.shape
+        sf = self.scale
+        tile = min(self.tile, h, w)
+        stride = tile - self.tile_overlap
+        h_idx = list(range(0, h - tile, stride)) + [h - tile]
+        w_idx = list(range(0, w - tile, stride)) + [w - tile]
+        positions = [(hi, wi) for hi in h_idx for wi in w_idx]
+
+        patches = np.stack([img[i, hi:hi + tile, wi:wi + tile]
+                            for hi, wi in positions for i in range(b)])
+        group = max(self.tile_batch, 1)
+        outs = []
+        for s in range(0, patches.shape[0], group):
+            chunk = patches[s:s + group]
+            pad = group - chunk.shape[0]
+            if pad:
+                zeros = np.zeros((pad, *chunk.shape[1:]), chunk.dtype)
+                chunk = np.concatenate([chunk, zeros], 0)
+            y = self._run(chunk)
+            outs.append(y[:group - pad] if pad else y)
+        out_patches = np.concatenate(outs, 0)
+
+        E = np.zeros((b, h * sf, w * sf, out_patches.shape[-1]), np.float32)
+        Wt = np.zeros_like(E)
+        k = 0
+        for hi, wi in positions:
+            for i in range(b):
+                E[i, hi * sf:(hi + tile) * sf, wi * sf:(wi + tile) * sf] += \
+                    out_patches[k]
+                Wt[i, hi * sf:(hi + tile) * sf, wi * sf:(wi + tile) * sf] += 1.0
+                k += 1
+        return E / Wt
