@@ -103,11 +103,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from grlir.ops.geometry import get_stripe_info
     from grlir_torch.engines.inference import Restorer
     from grlir_torch.models import zoo
     from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
     from grlir_torch.ops import block_attn, cuda_build
+    from grlir_torch.ops.geometry import get_stripe_info
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of grlir for NVIDIA Hopper GPUs.
 
 Mirrors the module names of the JAX package `grlir`, which stays the
-reference the port is tested against.  The port imports torch and numpy,
-plus the two numpy-only host modules it shares with grlir
-(`grlir.ops.geometry`, `grlir.utils.convert`); it never imports JAX.
+reference the port is tested against.  The port imports torch and numpy
+only: it keeps its own copies of the numpy host code it needs (geometry,
+parameter-name mapping) and never imports JAX or any module of `grlir`.
 """

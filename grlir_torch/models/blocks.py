@@ -2,8 +2,8 @@
 main-path classes of `grlir.models.blocks`).
 
 Parameter names follow the reference's state_dict, so that
-`grlir.utils.convert.flax_path_to_torch_key` maps every JAX parameter to its
-key here and released reference checkpoints load with `strict=True`.
+`grlir_torch.utils.convert.flax_path_to_torch_key` maps every JAX parameter
+to its key here and released reference checkpoints load with `strict=True`.
 Parameters stay fp32; convolutions and linear layers run in the compute
 dtype `dt`, LayerNorm and the position-bias MLP in fp32, GELU exact in fp32
 and tanh-approximate in bf16 (grlir/models/blocks.py:156-194).
@@ -18,8 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from grlir.ops.geometry import get_stripe_info
 from grlir_torch.ops.block_attn import stripe_half, window_half
+from grlir_torch.ops.geometry import get_stripe_info
 
 Size2 = Tuple[int, int]
 

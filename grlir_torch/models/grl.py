@@ -2,8 +2,9 @@
 `grlir.models.grl`).
 
 Geometry (position-bias tables, indices, shift-band ids) comes from the
-numpy builder the JAX package uses, once per padded input size and device,
-and is held as plain tensors on the module, never in the state_dict.
+port's numpy builder (`grlir_torch.ops.geometry`), once per padded input
+size and device, and is held as plain tensors on the module, never in the
+state_dict.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from grlir.ops.geometry import GeometryConfig, build_geometry_compact
 from grlir_torch.models.blocks import (
     EfficientMixAttnTransformerBlock,
     conv_nhwc,
     layer_norm,
 )
+from grlir_torch.ops.geometry import GeometryConfig, build_geometry_compact
 from grlir_torch.ops.layout import nearest_upsample, pad_to_multiple
 
 Size2 = Tuple[int, int]

@@ -20,10 +20,10 @@ import time
 import numpy as np
 import torch
 
-from grlir.utils.convert import strip_prefix
 from grlir_torch.engines.inference import Restorer, reflect_pad_to
 from grlir_torch.models import zoo
 from grlir_torch.models.grl import GRL
+from grlir_torch.utils.convert import strip_prefix
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KERNELS = {"auto": "auto", "on": True, "off": False}
