@@ -3,18 +3,26 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its numbers on its own line and raising on failure:
+Phases, each printing its numbers on lines of its own and raising on failure:
   1. device: name, compute capability (must be 9.0), nvidia-smi name/power limit;
-  2. build: the CUDA kernels from grlir_torch/csrc, timed;
-  3. kernels vs their plain PyTorch versions at GRL-S 256^2 shapes (window
-     shifted/unshifted, stripes H and V shifted/unshifted), fp32 and bf16;
-  4. model: GRL-S x4 from a seeded init, kernel path vs plain path (bf16 at
-     256^2 by PSNR, fp32 at 64^2 by max |diff|), 16 + 16 launches a forward;
-  5. serve: the Restorer answers four bf16 requests through the kernels
-     (the main path; launch counts reset just before it), each checked
-     against the plain path;
-  6. timing with CUDA events: each kernel vs its plain version, and the whole
-     model in megapixels (LR input) per second, kernels vs plain.
+  2. build: every CUDA kernel from grlir_torch/csrc (one nvcc per source, all
+     at once), timed, with the compiler's register/spill report;
+  3. GRL-S x4 (slice 1: B1 `window_half`, B2 `stripe_half`): each kernel vs
+     its plain PyTorch version at GRL-S 256^2 shapes, fp32 and bf16; the model
+     with kernels vs the plain path (bf16 256^2 by PSNR, fp32 64^2 by max
+     |diff|), 16 + 16 launches a forward; serving four bf16 requests through
+     the Restorer (its main path: launch counts reset just before, read just
+     after), each checked against the plain path; CUDA-event timing;
+  4. GRL-base (slice 2: B3 `window_half_large`, B4 `stripe_a2w_large` and
+     `stripe_w2a_large`) at its eval geometry (window 32, anchor df 2, stripes
+     64x64 for x4 SR and 64x128 for denoising): each kernel vs its plain
+     version at the main path's shapes with 3 heads of d = 30, and B1/B2 at
+     GRL-base's heads; the x4 model, kernels vs plain (bf16 128^2 by PSNR,
+     40 + 40 + 40 launches a forward and none of B1/B2; fp32 64^2); serving
+     two SR requests and one tiled denoising request (its main path, counts
+     reset just before), each against the plain path; timing of each kernel
+     against its plain version and the nearest PyTorch library composition,
+     the x4 forward in LR megapixels a second, and the denoising tile.
 Then one JSON line of per-kernel results, the nvidia-smi line, and last the
 result line.  Exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
@@ -31,13 +39,33 @@ import time
 from dataclasses import replace
 
 import torch
+import torch.nn.functional as F
 
 GRL_S_HW = 256
-WARMUP, RUNS = 5, 20
+BASE_HW = 256              # GRL-base x4 LR timing size (an eval tile)
+BASE_MODEL_HW = 128        # GRL-base x4 bf16 kernels-vs-plain check
 BF16_MAX_ERR = 1e-2        # bf16 outputs: a few ulps at |y| < 1
 FP32_TOL = 1e-4            # fp32: summation order only
-MODEL_FP32_MAX_ERR = 5e-4  # 16 blocks of fp32 rounding-order drift
+MODEL_FP32_MAX_ERR = 5e-4  # whole-model fp32 rounding-order drift
 MODEL_MIN_PSNR = 60.0      # bf16 whole model, kernels vs plain
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
+# FLOP/s by operand type (bf16 on tensor cores, fp32 on CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+REPLACES = {
+    "window_half": "grlir/ops/pallas/block_attn.py:214",
+    "stripe_half": "grlir/ops/pallas/block_attn.py:589",
+    "window_half_large": "grlir/ops/pallas/block_attn.py:311",
+    "stripe_a2w_large": "grlir/ops/pallas/block_attn.py:1037",
+    "stripe_w2a_large": "grlir/ops/pallas/block_attn.py:1104",
+}
+SOURCES = {
+    "window_half": "grlir_torch/csrc/window_half.cu",
+    "stripe_half": "grlir_torch/csrc/stripe_half.cu",
+    "window_half_large": "grlir_torch/csrc/window_half_large.cu",
+    "stripe_a2w_large": "grlir_torch/csrc/stripe_half_large.cu",
+    "stripe_w2a_large": "grlir_torch/csrc/stripe_half_large.cu",
+}
 
 
 def nvidia_smi() -> str:
@@ -47,7 +75,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs=RUNS, warmup=WARMUP) -> float:
+def time_ms(fn, runs, warmup) -> float:
     """Median of per-call CUDA-event times after warm-up."""
     for _ in range(warmup):
         fn()
@@ -63,20 +91,43 @@ def time_ms(fn, runs=RUNS, warmup=WARMUP) -> float:
     return statistics.median(times)
 
 
-def ab_ms(plain, kernel):
+def ab_ms(plain, kernel, runs=20, warmup=5):
     """Plain and kernel times in turns (plain, kernel, kernel, plain)."""
-    p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
+    p1 = time_ms(plain, runs, warmup)
+    k1 = time_ms(kernel, runs, warmup)
+    k2 = time_ms(kernel, runs, warmup)
+    p2 = time_ms(plain, runs, warmup)
     return statistics.median([k1, k2]), statistics.median([p1, p2])
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes: float, flops: float, dtype):
+    """Least time for the work: bytes at the HBM rate or FLOPs at the peak
+    rate of the operand type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
+                "anchor_units_kernel", "attend_kernel")
+
+
 def ptxas_report(log: str):
-    """One line per kernel instantiation from nvcc's `-Xptxas -v` output."""
-    lines, name, spill = [], None, ""
+    """One line per kernel instantiation from nvcc's `-Xptxas -v` output:
+    source, kernel (the longest known name in the symbol), element type."""
+    lines, name, spill, src = [], None, "", "?"
     for line in log.splitlines():
-        if "Function properties for" in line:
+        if " -c " in line and ".cu" in line:
+            src = line.rsplit("/", 1)[-1].strip()
+        elif "Function properties for" in line:
             fn = line.split("for ")[-1]
-            kind = next((k for k in ("window_half", "stripe_half") if k in fn), fn)
-            name = f"{kind}<{'bf16' if 'bfloat16' in fn else 'fp32'}>"
+            kind = max((k for k in KERNEL_KINDS if k in fn), key=len, default=fn)
+            first = fn[fn.find(kind) + len(kind):] if kind in fn else ""
+            name = f"{src}:{kind}<{'bf16' if first.startswith('I13__nv_bfloat16') else 'fp32'}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "registers" in line and name:
@@ -99,6 +150,22 @@ def check(ok: bool, what: str):
         raise RuntimeError(f"FAILED: {what}")
 
 
+class Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        if exc[0] is None:
+            print(f"[wall] {self.name}: {time.perf_counter() - self.t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -106,12 +173,18 @@ def main() -> int:
     from grlir_torch.engines.inference import Restorer
     from grlir_torch.models import zoo
     from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
-    from grlir_torch.ops import block_attn, cuda_build
+    from grlir_torch.ops import block_attn as ba
+    from grlir_torch.ops import cuda_build
     from grlir_torch.ops.geometry import get_stripe_info
+    from grlir_torch.ops.layout import window_partition, window_reverse
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g) * std).to(dev)
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -131,154 +204,468 @@ def main() -> int:
     for line in ptxas_report((cuda_build.BUILD_DIR / "build.log").read_text()):
         print(f"[build] {line}")
 
-    # 3. kernels vs plain at GRL-S 256^2 shapes
-    cfg = zoo.GRL_SMALL
-    C, heads, df = cfg.embed_dim, cfg.num_heads_window[0], cfg.anchor_window_down_factor
-    g = torch.Generator().manual_seed(0)
-    geom = geometry_tensors(cfg.geometry_config, (GRL_S_HW, GRL_S_HW), dev)
+    # ---------------------------------------------------------------- cases
+    # A case is one call of a kernel's wrapper at fixed inputs: fn(x, kernels)
+    # runs it on x (its dtype picks fp32 or bf16); lib(x) is the nearest
+    # PyTorch library composition (qkv matmul, then scaled_dot_product_attention
+    # with the bias plus the shift mask as attn_mask); cost(x) the bytes and
+    # FLOPs the function needs on x.
 
-    def rnd(*shape, std=1.0):
-        return (torch.randn(*shape, generator=g) * std).to(dev)
+    def heads_of(t, h):      # (B, nS, N, h*d) -> (B, nS, h, N, d)
+        B_, nS, N, Cx = t.shape
+        return t.reshape(B_, nS, N, h, Cx // h).permute(0, 1, 3, 2, 4)
 
-    x = rnd(1, GRL_S_HW, GRL_S_HW, C)
-    wqkv, bqkv = rnd(C, 3 * C // 2, std=0.02), rnd(3 * C // 2, std=0.02)
-    ls1 = torch.full((heads, 1, 1), math.log(10.0), device=dev)
-    ls2 = torch.full((heads, 1, 1), math.log(12.0), device=dev)
-    anchor = rnd(1, GRL_S_HW // df, GRL_S_HW // df, C // 2)
-    n_w = cfg.window_size ** 2
-    bias_w = 16 * torch.sigmoid(rnd(heads, n_w, n_w))
-    win = (cfg.window_size, cfg.window_size)
-    cases = {"window_half": [], "stripe_half": []}
-    for shifted in (False, True):
-        cases["window_half"].append((
-            f"window {win} shift {4 if shifted else 0}",
-            lambda t, k, s=shifted: block_attn.window_half(
-                t, wqkv, bqkv, ls1, bias_w, win,
-                bands=geom["bands_w"] if s else None, shift=4 if s else 0,
-                kernels=k)))
-    hw = (GRL_S_HW, GRL_S_HW)
-    for key, sizes, groups in (("sh", cfg.stripe_size, cfg.stripe_groups),
-                               ("sv", cfg.stripe_size[::-1], cfg.stripe_groups[::-1])):
-        stripe, shift = get_stripe_info(sizes, groups, True, hw)
-        n1, n2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
-        b1 = 16 * torch.sigmoid(rnd(heads, n2, n1))
-        b2 = 16 * torch.sigmoid(rnd(heads, n1, n2))
-        for shifted in (False, True):
-            cases["stripe_half"].append((
-                f"stripe {stripe} shift {shift if shifted else (0, 0)}",
-                lambda t, k, st=stripe, sft=shift, s=shifted, b1=b1, b2=b2, key=key:
-                block_attn.stripe_half(
-                    t, anchor.to(t.dtype), wqkv, bqkv, ls1, ls2, b1, b2, st, df,
-                    bands=geom[f"bands_{key}"] if s else None,
-                    bands_a=geom[f"bands_{key}_a"] if s else None,
-                    shift=sft if s else (0, 0), kernels=k)))
-    max_err = {}
-    with torch.no_grad():
-        for kname, kcases in cases.items():
-            max_err[kname] = 0.0
-            for label, fn in kcases:
+    def sdpa(q, k, v, bias, mask):
+        """q (B, nS, h, Nq, d) against k, v; bias (h, Nq, Nk); mask
+        (nS, 1, Nq, Nk) or None."""
+        B_, nS, h, Nq, d = q.shape
+        if mask is None:
+            m = bias[None].to(q.dtype)
+            shape = (B_ * nS, h)
+        else:
+            m = (bias[None] + mask).to(q.dtype).reshape(1, nS * h, Nq, -1)
+            shape = (B_, nS * h)
+        q, k, v = (t.reshape(*shape, t.shape[-2], d) for t in (q, k, v))
+        y = F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=1.0)
+        return y.reshape(B_, nS, h, Nq, d)
+
+    def band_mask(bq, bk):
+        return None if bq is None else torch.where(
+            bq[:, :, None] != bk[:, None, :], -100.0, 0.0)[:, None]
+
+    def window_case(x, w, b, ls, bias, win, bands, shift):
+        h = ls.shape[0]
+        B_, H, W_, C = x.shape
+        Cw, N = w.shape[1] // 3, win[0] * win[1]
+        large = ba.window_route((H, W_), win, h) == "large"
+
+        def fn(t, k):
+            return ba.window_half(t, w, b, ls, bias, win, bands=bands, shift=shift,
+                                  kernels=k)
+
+        def lib(t):
+            if shift:
+                t = torch.roll(t, (-shift, -shift), dims=(1, 2))
+            qkv = torch.matmul(window_partition(t, win), w.to(t.dtype)) + b.to(t.dtype)
+            q, k, v = (heads_of(p, h) for p in qkv.chunk(3, -1))
+            s = ba._scale(ls).reshape(h, 1, 1).to(t.dtype)
+            y = sdpa(F.normalize(q, dim=-1) * s, F.normalize(k, dim=-1), v, bias,
+                     band_mask(bands, bands))
+            return window_reverse(y.permute(0, 1, 3, 2, 4).reshape(*y.shape[:2], N, Cw),
+                                  win, (H, W_))
+
+        def cost(t):
+            it = t.element_size()
+            n = (nbytes(t, bands) + (C * 3 * Cw + 3 * Cw) * it
+                 + bias.numel() * (2 if large else 4) + t[..., :Cw].numel() * it)
+            return n, 2 * B_ * H * W_ * C * 3 * Cw + 4 * B_ * H * W_ * N * Cw
+
+        return fn, lib, cost
+
+    def stripe_parts(t, anchor, w, b, h, stripe, df, shift):
+        """k, v, q (B, nS, h, N1, d) and unit anchors (B, nS, h, N2, d) of a
+        library composition."""
+        if shift != (0, 0):
+            t = torch.roll(t, (-shift[0], -shift[1]), dims=(1, 2))
+        qkv = torch.matmul(window_partition(t, stripe), w.to(t.dtype)) + b.to(t.dtype)
+        q, k, v = (heads_of(p, h) for p in qkv.chunk(3, -1))
+        a = window_partition(anchor.to(t.dtype), (stripe[0] // df, stripe[1] // df))
+        return q, k, v, F.normalize(heads_of(a, h), dim=-1)
+
+    def stripe_case(kind, x, anchor, w, b, ls1, ls2, b1, b2, stripe, df, bands,
+                    bands_a, shift):
+        """kind: "stripe_half" (B2, both steps), "a2w" or "w2a" (B4 steps;
+        w2a takes the plain a2w output as x1)."""
+        h = ls1.shape[0]
+        B_, H, W_, C = x.shape
+        Cs = w.shape[1] // 3
+        N1, N2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
+        kw = dict(bands=bands, bands_a=bands_a, shift=shift)
+        s1 = ba._scale(ls1).reshape(h, 1, 1)
+        s2 = ba._scale(ls2).reshape(h, 1, 1)
+        x1s = {}
+
+        def x1_of(t):
+            if t.dtype not in x1s:
+                with torch.no_grad():
+                    x1s[t.dtype] = ba.stripe_a2w_large(t, anchor.to(t.dtype), w, b, ls1,
+                                                       b1, stripe, df, kernels=False, **kw)
+            return x1s[t.dtype]
+
+        def fn(t, k):
+            a = anchor.to(t.dtype)
+            if kind == "stripe_half":
+                return ba.stripe_half(t, a, w, b, ls1, ls2, b1, b2, stripe, df,
+                                      kernels=k, **kw)
+            if kind == "a2w":
+                return ba.stripe_a2w_large(t, a, w, b, ls1, b1, stripe, df, kernels=k,
+                                           **kw)
+            return ba.stripe_w2a_large(t, a, x1_of(t), w, b, ls2, b2, stripe, df,
+                                       kernels=k, **kw)
+
+        def lib(t):
+            q, k, v, an = stripe_parts(t, anchor, w, b, h, stripe, df, shift)
+            m1, m2 = band_mask(bands_a, bands), band_mask(bands, bands_a)
+            if kind == "w2a":
+                x1 = x1_of(t)
+            else:
+                x1 = sdpa(an * s1.to(t.dtype), F.normalize(k, dim=-1), v, b1, m1)
+                if kind == "a2w":
+                    return x1
+            y = sdpa(F.normalize(q, dim=-1) * s2.to(t.dtype), an, x1, b2, m2)
+            return ba._stripe_out(y, stripe, (H, W_))
+
+        def cost(t):
+            it = t.element_size()
+            io = nbytes(t, anchor.to(t.dtype), bands, bands_a)
+            out_y = t[..., :Cs].numel() * it
+            out_x1 = anchor.numel() * it
+            attn = 4 * B_ * H * W_ * N2 * Cs      # one step: logits and product
+            if kind == "stripe_half":
+                n = io + (C * 3 * Cs + 3 * Cs) * it + nbytes(b1, b2) + out_y
+                return n, 2 * B_ * H * W_ * C * 3 * Cs + 2 * attn
+            bias = (b1 if kind == "a2w" else b2).numel() * it
+            if kind == "a2w":
+                n = io + (C * 2 * Cs + 2 * Cs) * it + bias + out_x1
+                return n, 2 * B_ * H * W_ * C * 2 * Cs + attn
+            n = io + out_x1 + (C * Cs + Cs) * it + bias + out_y
+            return n, 2 * B_ * H * W_ * C * Cs + attn
+
+        return fn, lib, cost
+
+    def run_cases(cases, max_err):
+        """Each case's kernel against its plain version, fp32 and bf16."""
+        with torch.no_grad():
+            for kname, label, (fn, _, _), x in cases:
                 for dtype in (torch.float32, torch.bfloat16):
                     xt = x.to(dtype)
                     got, want = fn(xt, True), fn(xt, False)
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
-                    max_err[kname] = max(max_err[kname], err)
+                    max_err[kname] = max(max_err.get(kname, 0.0), err)
                     if dtype == torch.float32:
                         ok = torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
-                        bound = f"atol {FP32_TOL} rtol {FP32_TOL}"
+                        tol = f"atol {FP32_TOL} rtol {FP32_TOL}"
                     else:
-                        ok, bound = err <= BF16_MAX_ERR, f"max {BF16_MAX_ERR}"
+                        ok, tol = err <= BF16_MAX_ERR, f"max {BF16_MAX_ERR}"
                     print(f"[kernel] {kname} {label} {str(dtype)[6:]}: "
-                          f"max|diff| {err:.3e} ({bound})")
+                          f"max|diff| {err:.3e} ({tol})")
                     check(bool(ok) and math.isfinite(err), f"{kname} {label} {dtype}")
 
-    # 4. model: kernel path vs plain path
-    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
-                         torch.Generator().manual_seed(0)).eval().to(dev)
-    plain = GRL(replace(cfg, dtype=torch.bfloat16, kernels=False)).eval().to(dev)
-    plain.load_state_dict(model.state_dict())
-    lr = torch.rand(1, GRL_S_HW, GRL_S_HW, 3, generator=g).to(dev)
-    with torch.no_grad():
-        block_attn.window_half.launches = block_attn.stripe_half.launches = 0
-        y_k = model(lr)
+    def time_case(kname, label, case, x, runs, warmup, timing):
+        fn, lib, cost = case
+        xb = x.to(torch.bfloat16)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: fn(xb, False), lambda: fn(xb, True), runs, warmup)
+            l_ms = time_ms(lambda: lib(xb), runs, warmup)
+        b_ms, b_by = bound_ms(*cost(xb), torch.bfloat16)
+        print(f"[time] {kname} {label} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"library composition {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{smi}]")
+        timing[kname] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+
+    def counts():
+        return {k.__name__: k.launches for k in ba.KERNELS}
+
+    max_err, timing, served = {}, {}, {}
+
+    # 3. GRL-S x4 (slice 1)
+    with Phase("GRL-S kernels"):
+        cfg = zoo.GRL_SMALL
+        C, heads, df = cfg.embed_dim, cfg.num_heads_window[0], cfg.anchor_window_down_factor
+        hw = (GRL_S_HW, GRL_S_HW)
+        geom = geometry_tensors(cfg.geometry_config, hw, dev)
+        x = rnd(1, *hw, C)
+        w, b = rnd(C, 3 * C // 2, std=0.02), rnd(3 * C // 2, std=0.02)
+        ls1 = torch.full((heads, 1, 1), math.log(10.0), device=dev)
+        ls2 = torch.full((heads, 1, 1), math.log(12.0), device=dev)
+        anchor = rnd(1, hw[0] // df, hw[1] // df, C // 2)
+        win = (cfg.window_size, cfg.window_size)
+        bias_w = 16 * torch.sigmoid(rnd(heads, win[0] ** 2, win[0] ** 2))
+        cases_s = []
+        for s in (0, 4):
+            cases_s.append(("window_half", f"window {win} shift {s}", window_case(
+                x, w, b, ls1, bias_w, win, geom["bands_w"] if s else None, s), x))
+        for key, sizes, groups in (("sh", cfg.stripe_size, cfg.stripe_groups),
+                                   ("sv", cfg.stripe_size[::-1], cfg.stripe_groups[::-1])):
+            stripe, shift = get_stripe_info(sizes, groups, True, hw)
+            n1, n2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
+            b1, b2 = 16 * torch.sigmoid(rnd(heads, n2, n1)), 16 * torch.sigmoid(rnd(heads, n1, n2))
+            for shifted in (False, True):
+                cases_s.append(("stripe_half", f"stripe {stripe} shift "
+                                f"{shift if shifted else (0, 0)}", stripe_case(
+                                    "stripe_half", x, anchor, w, b, ls1, ls2, b1, b2, stripe,
+                                    df, geom[f"bands_{key}"] if shifted else None,
+                                    geom[f"bands_{key}_a"] if shifted else None,
+                                    shift if shifted else (0, 0)), x))
+        run_cases(cases_s, max_err)
+
+    with Phase("GRL-S model"):
+        model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
+                             torch.Generator().manual_seed(0)).eval().to(dev)
+        plain = GRL(replace(cfg, dtype=torch.bfloat16, kernels=False)).eval().to(dev)
+        plain.load_state_dict(model.state_dict())
+        lr = torch.rand(1, *hw, 3, generator=g).to(dev)
+        n_blocks = sum(cfg.depths)
+        with torch.no_grad():
+            ba.reset_launches()
+            y_k = model(lr)
+            torch.cuda.synchronize()
+            per_fwd = counts()
+            y_p = plain(lr)
+        print(f"[model] GRL-S x4 bf16 {GRL_S_HW}^2: out {tuple(y_k.shape)}, launches "
+              f"{per_fwd} per forward, PSNR kernels vs plain {psnr(y_k, y_p):.2f} dB, "
+              f"rel L2 {rel_l2(y_k, y_p):.3e}")
+        check(per_fwd == {"window_half": n_blocks, "stripe_half": n_blocks,
+                          "window_half_large": 0, "stripe_a2w_large": 0,
+                          "stripe_w2a_large": 0}, f"GRL-S launches {per_fwd}")
+        check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
+              and bool(torch.isfinite(y_k).all()), "bf16 model output")
+        check(psnr(y_k, y_p) >= MODEL_MIN_PSNR, f"bf16 PSNR < {MODEL_MIN_PSNR} dB")
+        m32 = GRL(replace(cfg, dtype=torch.float32)).eval().to(dev)
+        p32 = GRL(replace(cfg, dtype=torch.float32, kernels=False)).eval().to(dev)
+        m32.load_state_dict(model.state_dict())
+        p32.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
+        print(f"[model] GRL-S x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
+              f"(max {MODEL_FP32_MAX_ERR})")
+        check(err32 <= MODEL_FP32_MAX_ERR, "fp32 model kernels vs plain")
+        del m32, p32
+
+    with Phase("GRL-S serve"):
+        bucket = {"shape_bucket": 64}
+        requests = [
+            ("256x256", torch.rand(1, 256, 256, 3, generator=g), bucket),
+            ("200x232 (64-bucket)", torch.rand(1, 200, 232, 3, generator=g), bucket),
+            ("batch of 2 192x160", torch.rand(2, 192, 160, 3, generator=g), bucket),
+            ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
+             {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
+        ]
+        ba.reset_launches()
+        t0 = time.perf_counter()
+        outs = [Restorer(model, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
         torch.cuda.synchronize()
-        launches = (block_attn.window_half.launches, block_attn.stripe_half.launches)
-        y_p = plain(lr)
-    n_blocks = sum(cfg.depths)
-    print(f"[model] GRL-S x4 bf16 {GRL_S_HW}^2: out {tuple(y_k.shape)}, launches "
-          f"window {launches[0]} stripe {launches[1]} per forward, PSNR kernels vs "
-          f"plain {psnr(y_k, y_p):.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
-    check(launches == (n_blocks, n_blocks), f"launches {launches} != {n_blocks} each")
-    check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
-          and bool(torch.isfinite(y_k).all()), "bf16 model output")
-    check(psnr(y_k, y_p) >= MODEL_MIN_PSNR, f"bf16 PSNR < {MODEL_MIN_PSNR} dB")
-    m32 = GRL(replace(cfg, dtype=torch.float32)).eval().to(dev)
-    p32 = GRL(replace(cfg, dtype=torch.float32, kernels=False)).eval().to(dev)
-    m32.load_state_dict(model.state_dict())
-    p32.load_state_dict(model.state_dict())
-    lr64 = lr[:, :64, :64]
-    with torch.no_grad():
-        err32 = (m32(lr64) - p32(lr64)).abs().max().item()
-    print(f"[model] GRL-S x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-          f"(max {MODEL_FP32_MAX_ERR})")
-    check(err32 <= MODEL_FP32_MAX_ERR, "fp32 model kernels vs plain")
+        serve_s = time.perf_counter() - t0
+        got = counts()
+        served.update(window_half=got["window_half"], stripe_half=got["stripe_half"])
+        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}")
+        for (label, img, kw), out in zip(requests, outs):
+            ref = Restorer(plain, dev, scale=4, **kw)(img.numpy())
+            bsz, h_, w_, _ = img.shape
+            out = torch.from_numpy(out)
+            finite = bool(torch.isfinite(out).all())
+            p = psnr(out, torch.from_numpy(ref))
+            print(f"[serve] GRL-S {label}: out {tuple(out.shape)}, finite {finite}, "
+                  f"PSNR vs plain {p:.2f} dB")
+            check(tuple(out.shape) == (bsz, 4 * h_, 4 * w_, 3) and finite, label)
+            check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
+        check(served["window_half"] == served["stripe_half"] == 4 * n_blocks
+              and got["window_half_large"] == got["stripe_a2w_large"] == 0,
+              f"GRL-S served launches {got} != 4 forwards x {n_blocks}")
 
-    # 5. serve: the main path, four requests through the Restorer
-    bucket = {"shape_bucket": 64}
-    requests = [
-        ("256x256", torch.rand(1, 256, 256, 3, generator=g), bucket),
-        ("200x232 (64-bucket)", torch.rand(1, 200, 232, 3, generator=g), bucket),
-        ("batch of 2 192x160", torch.rand(2, 192, 160, 3, generator=g), bucket),
-        ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
-         {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
-    ]
-    outs = []
-    block_attn.window_half.launches = block_attn.stripe_half.launches = 0
-    t0 = time.perf_counter()
-    for label, img, kw in requests:
-        outs.append(Restorer(model, dev, scale=4, **kw)(img.numpy()))
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    served = {"window_half": block_attn.window_half.launches,
-              "stripe_half": block_attn.stripe_half.launches}
-    print(f"[serve] 4 requests in {serve_s:.2f} s, launches {served}")
-    for (label, img, kw), out in zip(requests, outs):
-        ref = Restorer(plain, dev, scale=4, **kw)(img.numpy())
-        b, h, w, _ = img.shape
-        out = torch.from_numpy(out)
-        finite = bool(torch.isfinite(out).all())
-        p = psnr(out, torch.from_numpy(ref))
-        print(f"[serve] {label}: out {tuple(out.shape)}, finite {finite}, "
-              f"PSNR vs plain {p:.2f} dB")
-        check(tuple(out.shape) == (b, 4 * h, 4 * w, 3) and finite, label)
-        check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
-    check(served["window_half"] == served["stripe_half"] == 4 * n_blocks,
-          f"served launches {served} != 4 forwards x {n_blocks}")
+    with Phase("GRL-S timing"):
+        for kname, label, case, xc in (cases_s[1], cases_s[-1]):
+            time_case(kname, label, case, xc, 10, 3, timing)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: plain(lr), lambda: model(lr), 10, 3)
+        mp = GRL_S_HW * GRL_S_HW / 1e6
+        print(f"[time] GRL-S x4 {GRL_S_HW}^2 bs1 bf16 forward: kernels {k_ms:.3f} ms "
+              f"({mp / (k_ms / 1e3):.4f} MP/s), plain {p_ms:.3f} ms "
+              f"({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
+        del model, plain, cases_s
 
-    # 6. timing (bf16, GRL-S 256^2 shapes)
-    xb = x.to(torch.bfloat16)
-    timing = {}
-    with torch.no_grad():
-        for kname, kcases in cases.items():
-            for i, (label, fn) in enumerate(kcases):
-                k_ms, p_ms = ab_ms(lambda: fn(xb, False), lambda: fn(xb, True))
-                print(f"[time] {kname} {label} bf16: kernel {k_ms:.4f} ms, "
-                      f"plain {p_ms:.4f} ms")
-                if i == len(kcases) - 1:
-                    timing[kname] = (k_ms, p_ms)
-        k_ms, p_ms = ab_ms(lambda: plain(lr), lambda: model(lr))
-    mp = GRL_S_HW * GRL_S_HW / 1e6
-    print(f"[time] GRL-S x4 {GRL_S_HW}^2 bs1 bf16 forward: kernels {k_ms:.3f} ms "
-          f"({mp / (k_ms / 1e3):.4f} MP/s), plain {p_ms:.3f} ms "
-          f"({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
+    # 4. GRL-base at its eval geometry (slice 2)
+    base_geo = dict(window_size=32, anchor_window_down_factor=2,
+                    stripe_groups=(None, None))
+    sr_cfg = zoo.make_config("base", task="sr", upscale=4, stripe_size=(64, 64), **base_geo)
+    dn_cfg = zoo.make_config("base", task="dn", stripe_size=(64, 128), **base_geo)
+    C, heads, df = sr_cfg.embed_dim, sr_cfg.num_heads_window[0], 2
+    n_blocks = sum(sr_cfg.depths)
+    with Phase("GRL-base kernels"):
+        cases_b = []
+        win = (32, 32)
+        w, b = rnd(C, 3 * C // 2, std=0.02), rnd(3 * C // 2, std=0.02)
+        ls1 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(heads, 1, 1)
+        ls2 = torch.tensor([math.log(12.0), 4.0, 2.5], device=dev).reshape(heads, 1, 1)
+        for bsz, cfg_b in ((1, sr_cfg), (2, dn_cfg)):
+            hw = (BASE_HW, BASE_HW)
+            geom = geometry_tensors(cfg_b.geometry_config, hw, dev)
+            x = rnd(bsz, *hw, C)
+            anchor = rnd(bsz, hw[0] // df, hw[1] // df, C // 2)
+            if bsz == 1:
+                bias_w = 16 * torch.sigmoid(rnd(heads, 1024, 1024))
+                for s in (0, 16):
+                    cases_b.append(("window_half_large", f"window {win} shift {s} bs1",
+                                    window_case(x, w, b, ls1, bias_w, win,
+                                                geom["bands_w"] if s else None, s), x))
+            keys = [("sh", cfg_b.stripe_size)]
+            if cfg_b.stripe_size[0] != cfg_b.stripe_size[1]:
+                keys.append(("sv", cfg_b.stripe_size[::-1]))
+            for key, stripe in keys:
+                n1, n2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
+                b1 = 16 * torch.sigmoid(rnd(heads, n2, n1))
+                b2 = 16 * torch.sigmoid(rnd(heads, n1, n2))
+                half = (stripe[0] // 2, stripe[1] // 2)
+                for shifted in (False, True):
+                    args = (x, anchor, w, b, ls1, ls2, b1, b2, stripe, df,
+                            geom[f"bands_{key}"] if shifted else None,
+                            geom[f"bands_{key}_a"] if shifted else None,
+                            half if shifted else (0, 0))
+                    label = f"stripe {stripe} shift {args[-1]} bs{bsz}"
+                    for step in ("a2w", "w2a"):
+                        cases_b.append((f"stripe_{step}_large", label,
+                                        stripe_case(step, *args), x))
+        # B1/B2 at GRL-base's heads (3 of d = 30): its deployed zoo geometry
+        base_zoo = zoo.GRL_BASE
+        hw = (BASE_HW, BASE_HW)
+        geom = geometry_tensors(base_zoo.geometry_config, hw, dev)
+        x = rnd(1, *hw, C)
+        anchor = rnd(1, hw[0] // 4, hw[1] // 4, C // 2)
+        bias8 = 16 * torch.sigmoid(rnd(heads, 64, 64))
+        cases_b.append(("window_half", "window (8, 8) shift 4 h3 d30", window_case(
+            x, w, b, ls1, bias8, (8, 8), geom["bands_w"], 4), x))
+        stripe, shift = get_stripe_info(base_zoo.stripe_size, base_zoo.stripe_groups, True, hw)
+        n1, n2 = stripe[0] * stripe[1], (stripe[0] // 4) * (stripe[1] // 4)
+        cases_b.append(("stripe_half", f"stripe {stripe} shift {shift} h3 d30", stripe_case(
+            "stripe_half", x, anchor, w, b, ls1, ls2, 16 * torch.sigmoid(rnd(heads, n2, n1)),
+            16 * torch.sigmoid(rnd(heads, n1, n2)), stripe, 4, geom["bands_sh"],
+            geom["bands_sh_a"], shift), x))
+        run_cases(cases_b, max_err)
 
-    replaces = {"window_half": "grlir/ops/pallas/block_attn.py:214",
-                "stripe_half": "grlir/ops/pallas/block_attn.py:589"}
+    with Phase("GRL-base model"):
+        base = init_weights(GRL(replace(sr_cfg, dtype=torch.bfloat16)),
+                            torch.Generator().manual_seed(1)).eval().to(dev)
+        base_plain = GRL(replace(sr_cfg, dtype=torch.bfloat16, kernels=False)).eval().to(dev)
+        base_plain.load_state_dict(base.state_dict())
+        lr = torch.rand(1, BASE_MODEL_HW, BASE_MODEL_HW, 3, generator=g).to(dev)
+        mem = {}
+        with torch.no_grad():
+            ba.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            y_k = base(lr)
+            torch.cuda.synchronize()
+            mem["kernels"] = torch.cuda.max_memory_allocated() / 2**30
+            per_fwd = counts()
+            torch.cuda.reset_peak_memory_stats()
+            y_p = base_plain(lr)
+            torch.cuda.synchronize()
+            mem["plain"] = torch.cuda.max_memory_allocated() / 2**30
+        p = psnr(y_k, y_p)
+        print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 (window 32, stripes 64x64, df 2): "
+              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, PSNR kernels vs "
+              f"plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, max_memory_allocated "
+              f"kernels {mem['kernels']:.2f} GiB, plain {mem['plain']:.2f} GiB")
+        check(per_fwd == {"window_half": 0, "stripe_half": 0, "window_half_large": n_blocks,
+                          "stripe_a2w_large": n_blocks, "stripe_w2a_large": n_blocks},
+              f"GRL-base launches {per_fwd}")
+        check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
+              and bool(torch.isfinite(y_k).all()), "GRL-base bf16 output")
+        check(p >= MODEL_MIN_PSNR, f"GRL-base bf16 PSNR < {MODEL_MIN_PSNR} dB")
+        m32 = GRL(sr_cfg).eval().to(dev)
+        p32 = GRL(replace(sr_cfg, kernels=False)).eval().to(dev)
+        m32.load_state_dict(base.state_dict())
+        p32.load_state_dict(base.state_dict())
+        with torch.no_grad():
+            err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
+        print(f"[model] GRL-base x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
+              f"(max {MODEL_FP32_MAX_ERR})")
+        check(err32 <= MODEL_FP32_MAX_ERR, "GRL-base fp32 kernels vs plain")
+        del m32, p32
+
+    with Phase("GRL-base serve"):
+        dn = init_weights(GRL(replace(dn_cfg, dtype=torch.bfloat16)),
+                          torch.Generator().manual_seed(2)).eval()
+        # With the reference's conv init the identity tail adds a residual
+        # several times an image's range, and its bf16 rounding alone would
+        # set the PSNR; a tenth of it gives a denoiser's residual scale.
+        with torch.no_grad():
+            dn.conv_last.weight.mul_(0.1)
+            dn.conv_last.bias.mul_(0.1)
+        dn = dn.to(dev)
+        dn_plain = GRL(replace(dn_cfg, dtype=torch.bfloat16, kernels=False)).eval().to(dev)
+        dn_plain.load_state_dict(dn.state_dict())
+        tiled = {"tile": 256, "tile_overlap": 32, "tile_batch": 2}
+        requests = [
+            ("SR x4 256x192", base, base_plain, 4,
+             torch.rand(1, 256, 192, 3, generator=g), {"shape_bucket": 64}),
+            ("SR x4 200x232 (64-bucket)", base, base_plain, 4,
+             torch.rand(1, 200, 232, 3, generator=g), {"shape_bucket": 64}),
+            ("dn 321x481 tiled 256/32, stripes 64x128", dn, dn_plain, 1,
+             torch.rand(1, 321, 481, 3, generator=g), tiled),
+        ]
+        forwards = 1 + 1 + 3   # the dn request: 6 tiles in batches of 2
+        ba.reset_launches()
+        t0 = time.perf_counter()
+        outs = [Restorer(m, dev, scale=sc, **kw)(img.numpy())
+                for _, m, _, sc, img, kw in requests]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        got = counts()
+        served.update({k: got[k] for k in ("window_half_large", "stripe_a2w_large",
+                                           "stripe_w2a_large")})
+        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}")
+        for (label, _, m_plain, sc, img, kw), out in zip(requests, outs):
+            ref = Restorer(m_plain, dev, scale=sc, **kw)(img.numpy())
+            bsz, h_, w_, _ = img.shape
+            out = torch.from_numpy(out)
+            finite = bool(torch.isfinite(out).all())
+            p = psnr(out, torch.from_numpy(ref))
+            resid = f", residual std {(out - img).std().item():.4f}" if sc == 1 else ""
+            print(f"[serve] GRL-base {label}: out {tuple(out.shape)}, finite {finite}, "
+                  f"PSNR vs plain {p:.2f} dB{resid}")
+            check(tuple(out.shape) == (bsz, sc * h_, sc * w_, 3) and finite, label)
+            check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
+        check(got == {"window_half": 0, "stripe_half": 0,
+                      "window_half_large": forwards * n_blocks,
+                      "stripe_a2w_large": forwards * n_blocks,
+                      "stripe_w2a_large": forwards * n_blocks},
+              f"GRL-base served launches {got} != {forwards} forwards x {n_blocks}")
+        d32 = GRL(dn_cfg).eval().to(dev)
+        q32 = GRL(replace(dn_cfg, kernels=False)).eval().to(dev)
+        d32.load_state_dict(dn.state_dict())
+        q32.load_state_dict(dn.state_dict())
+        tiles = torch.rand(2, 256, 256, 3, generator=g).to(dev)
+        with torch.no_grad():
+            err32 = (d32(tiles) - q32(tiles)).abs().max().item()
+        print(f"[serve] GRL-base dn fp32 two 256^2 tiles: max|diff| kernels vs plain "
+              f"{err32:.3e} (max {MODEL_FP32_MAX_ERR})")
+        check(err32 <= MODEL_FP32_MAX_ERR, "GRL-base dn fp32 kernels vs plain")
+        del d32, q32
+
+    with Phase("GRL-base timing"):
+        for kname, label, case, xc in cases_b:
+            if kname == "window_half_large" and "shift 16" in label or (
+                    kname.startswith("stripe_") and kname.endswith("_large")
+                    and "bs1" in label and "(32, 32)" in label):
+                time_case(kname, label, case, xc, 5, 2, timing)
+        for kname, label, case, xc in cases_b:
+            if kname.endswith("_large") and "bs2" in label and "(32, 64)" in label:
+                time_case(kname + " (dn)", label, case, xc, 3, 1, {})
+        lr = torch.rand(1, BASE_HW, BASE_HW, 3, generator=g).to(dev)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: base_plain(lr), lambda: base(lr), 5, 2)
+        mp = BASE_HW * BASE_HW / 1e6
+        print(f"[time] GRL-base x4 {BASE_HW}^2 bs1 bf16 forward (window 32, stripes 64x64, "
+              f"df 2): kernels {k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), plain "
+              f"{p_ms:.3f} ms ({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
+        tiles = torch.rand(2, 256, 256, 3, generator=g).to(dev)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: dn_plain(tiles), lambda: dn(tiles), 3, 1)
+            for tag, m in (("kernels", dn), ("plain", dn_plain)):
+                torch.cuda.reset_peak_memory_stats()
+                m(tiles)
+                torch.cuda.synchronize()
+                mem[f"dn {tag}"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[time] GRL-base dn 256^2 tile (stripes 64x128, tile batch 2) bf16: kernels "
+              f"{k_ms / 2:.3f} ms a tile, plain {p_ms / 2:.3f} ms a tile; "
+              f"max_memory_allocated kernels {mem['dn kernels']:.2f} GiB, plain "
+              f"{mem['dn plain']:.2f} GiB [{smi}]")
+
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": f"grlir_torch/csrc/{k}.cu",
-         "replaces": replaces[k], "launches": served[k],
-         "max_abs_err": max_err[k], "ms": timing[k][0], "plain_ms": timing[k][1]}
-        for k in ("window_half", "stripe_half")]}))
+        {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+         "launches": served[k], "max_abs_err": max_err[k], **timing[k]}
+        for k in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

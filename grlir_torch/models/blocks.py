@@ -166,6 +166,49 @@ class AnchorStripeAttention(nn.Module):
         return y
 
 
+def _pointwise(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """1x1 conv of an NHWC tensor as grlir rounds it in dt: the product is
+    rounded to dt, then the bias (in dt) is added."""
+    w = layer.weight.reshape(layer.out_channels, layer.in_channels)
+    return F.linear(x.to(dt), w.to(dt)) + layer.bias.to(dt)
+
+
+class ChannelAttention(nn.Module):
+    """Squeeze-excite gate: channel means, 1x1 conv to dim/reduction, ReLU,
+    1x1 conv back, sigmoid (keys attention.1 and attention.3)."""
+
+    def __init__(self, dim: int, reduction: int, device=None):
+        super().__init__()
+        self.attention = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1),
+            nn.Conv2d(dim, dim // reduction, 1, device=device), nn.ReLU(),
+            nn.Conv2d(dim // reduction, dim, 1, device=device), nn.Sigmoid())
+
+    def forward(self, x, dt):
+        # the mean is taken in fp32 and rounded to dt, as jnp.mean does
+        m = x.float().mean((1, 2), keepdim=True).to(dt)
+        y = torch.relu(_pointwise(self.attention[1], m, dt))
+        return x * torch.sigmoid(_pointwise(self.attention[3], y, dt))
+
+
+class CAB(nn.Module):
+    """Local convolution branch of GRL-base: 3x3 conv to dim/4, GELU, 3x3
+    conv back to dim, channel attention (keys cab.0, cab.2, cab.3)."""
+
+    def __init__(self, dim: int, compress_ratio: int = 4, reduction: int = 18,
+                 device=None):
+        super().__init__()
+        mid = dim // compress_ratio
+        self.cab = nn.Sequential(
+            nn.Conv2d(dim, mid, 3, padding=1, device=device), nn.GELU(),
+            nn.Conv2d(mid, dim, 3, padding=1, device=device),
+            ChannelAttention(dim, reduction, device=device))
+
+    def forward(self, x, dt):
+        y = gelu(conv_nhwc(self.cab[0], x, dt))
+        return self.cab[3](conv_nhwc(self.cab[2], y, dt), dt)
+
+
 class QKVProjection(nn.Module):
     """Shared qkv projection (key qkv.body); its weight is split per half."""
 
@@ -205,14 +248,15 @@ class MixedAttention(nn.Module):
 
 
 class EfficientMixAttnTransformerBlock(nn.Module):
-    """GRL block: mixed attention and MLP with post-norm residuals.
-    stripe_type "W" (vertical stripes) reverses the stripe size and groups
-    and reads the `sv` geometry."""
+    """GRL block: mixed attention and MLP with post-norm residuals, plus the
+    CAB local branch beside the attention when local_connection is set
+    (key conv).  stripe_type "W" (vertical stripes) reverses the stripe size
+    and groups and reads the `sv` geometry."""
 
     def __init__(self, dim: int, heads_w: int, heads_s: int, window: int,
                  window_shift: bool, stripe_size, stripe_groups,
                  stripe_type: str, stripe_shift: bool, mlp_ratio: float,
-                 df: int, device=None):
+                 df: int, local_connection: bool = False, device=None):
         super().__init__()
         self.geometry_key = "sv" if stripe_type == "W" else "sh"
         if stripe_type == "W":
@@ -223,6 +267,7 @@ class EfficientMixAttnTransformerBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
+        self.conv = CAB(dim, device=device) if local_connection else None
 
     def select_geometry(self, g: Dict[str, torch.Tensor]):
         s = self.geometry_key
@@ -235,5 +280,8 @@ class EfficientMixAttnTransformerBlock(nn.Module):
 
     def forward(self, x, geometry, dt, kernels: bool):
         tim = self.select_geometry(geometry)
-        x = x + layer_norm(self.norm1, self.attn(x, tim, dt, kernels))
+        branch = layer_norm(self.norm1, self.attn(x, tim, dt, kernels))
+        if self.conv is not None:
+            branch = branch + self.conv(x, dt)
+        x = x + branch
         return x + layer_norm(self.norm2, self.mlp(x, dt))

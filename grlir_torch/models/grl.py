@@ -85,9 +85,6 @@ class GRLConfig:
 
 def check_ported(cfg: GRLConfig) -> None:
     """Raise for the variants this port does not carry yet."""
-    if cfg.local_connection:
-        raise NotImplementedError(
-            "local_connection (CAB, GRL-base) is not ported yet (ROADMAP A2)")
     if cfg.anchor_window_down_factor < 2:
         raise NotImplementedError(
             "plain stripe attention (anchor_window_down_factor=1) is not "
@@ -135,7 +132,7 @@ class TransformerStage(nn.Module):
                 stripe_type="H" if i % 2 == 0 else "W",
                 stripe_shift=(i % 4 in (2, 3)) if cfg.stripe_shift else False,
                 mlp_ratio=cfg.mlp_ratio, df=cfg.anchor_window_down_factor,
-                device=device)
+                local_connection=cfg.local_connection, device=device)
             for i in range(depth)])
         self.conv = _conv(cfg.embed_dim, cfg.embed_dim, device=device)
 

@@ -27,8 +27,7 @@ GRL_TINY = GRLConfig(
 # config/model/grl/grl_small.yaml
 GRL_SMALL = replace(GRL_TINY, embed_dim=128, upsampler="pixelshuffle")
 
-# config/model/grl/grl_base.yaml (needs CAB: GRL(GRL_BASE) raises until the
-# second slice ports it)
+# config/model/grl/grl_base.yaml
 GRL_BASE = replace(
     GRL_SMALL,
     embed_dim=180,
@@ -37,6 +36,9 @@ GRL_BASE = replace(
     num_heads_stripe=(3, 3, 3, 3, 3, 3, 3),
     local_connection=True,
 )
+
+# config/model/grl/grl_base_bsr.yaml model_g (real-world SR generator)
+GRL_BASE_BSR = replace(GRL_BASE, upsampler="nearest+conv")
 
 
 def make_config(name: str, task: str = "sr", upscale: int = 4,

@@ -1,21 +1,31 @@
 """Whole block-half attention: NHWC x in, NHWC attention output out.
 
 Torch counterparts of `fused_window_half` and `fused_stripe_half`
-(grlir/ops/pallas/block_attn.py).  Each half has a hand-written CUDA kernel
-(`grlir_torch/csrc/window_half.cu`, `stripe_half.cu`) and, beside it, a plain
-PyTorch version of the same function (`window_half_ref`, `stripe_half_ref`).
+(grlir/ops/pallas/block_attn.py).  Each half routes a geometry as the TPU
+does (`window_route`, `stripe_route`) to one of four kernels, each
+hand-written in CUDA with a plain PyTorch version beside it:
+
+  window, N <= 512 (B1)       csrc/window_half.cu        window_half_ref
+  window, N > 512 (B3)        csrc/window_half_large.cu  window_half_large_ref
+  stripe, resident bias (B2)  csrc/stripe_half.cu        stripe_half_ref
+  stripe, streamed bias (B4)  csrc/stripe_half_large.cu  stripe_a2w_large_ref,
+                                                         stripe_w2a_large_ref
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
-version on any device.  The kernels have no backward yet, so with
+version on any device.  A geometry that no TPU kernel takes raises
+NotImplementedError either way.  The kernels have no backward yet, so with
 `kernels=True` an input that requires grad under grad mode raises.
 
-Both versions pin the numerics of the TPU kernels: q and k are unit-normed as
-t * rsqrt(max(sum t^2, 1e-24)); the clamped logit scale exp(min(s, log 100))
-is folded into q (window, w2a) or k (a2w) before the product; the shift mask
-adds -100 where band ids differ; softmax is fp32 with the 1/sum applied after
-the product with v; every product's operands are rounded to the input type
-(bf16 when x is bf16) and summed in fp32.  Outputs are in rolled coordinates:
+Every version pins the numerics of its TPU kernel: q, k and anchors are
+unit-normed as t * rsqrt(max(sum t^2, 1e-24)); the logit scale is
+exp(min(s, log 100)); the shift mask adds -100 where band ids differ; every
+product's operands are rounded to the input type (bf16 when x is bf16) and
+summed in fp32; softmax is fp32.  B1, B2 and B3 fold the scale into q (k for
+a2w) before the product and apply the 1/sum after the product with v; B3
+rounds its bias to bf16.  B4 scales the logits after the product, keeps its
+biases in x's type, normalises the softmax before rounding it, and writes
+x1 in x's type between its two steps.  Outputs are in rolled coordinates:
 the caller un-rolls them.
 """
 
@@ -31,11 +41,16 @@ from grlir_torch.ops.layout import window_partition, window_reverse
 
 Size2 = Tuple[int, int]
 
-# The TPU kernels' own admission rules, restated (block_attn.py:58-103):
-# geometries beyond them belong to the large-window (B3) and streamed-bias
-# large-stripe (B4) kernels, which are not ported yet.
-_LARGE_N = 512
+# The TPU kernels' own admission rules, restated (block_attn.py:68-151),
+# with the same names so that a test can monkeypatch them.  Each geometry
+# has one route, and the routes round differently: small windows (B1) and
+# resident-bias stripes (B2) keep fp32 biases; large windows (B3) store the
+# bias in bf16 and stripes beyond the resident budget (B4) stream it in x's
+# type.
 _BIAS_VMEM_BUDGET = 4 * 1024 * 1024
+_LARGE_N = 512
+_LARGE_BIAS_BUDGET = 8 * 1024 * 1024
+_STRIPE_ATTN_BUDGET = 4 * 1024 * 1024
 
 
 def _auto_pack_w(W: int, window: Size2) -> int:
@@ -46,26 +61,57 @@ def _auto_pack_w(W: int, window: Size2) -> int:
     return pack_w
 
 
-def window_half_supported(x_size: Size2, window: Size2, num_heads: int) -> bool:
-    """True when the small-window TPU kernel (and so this port's) takes it."""
+def window_route(x_size: Size2, window: Size2, num_heads: int) -> Optional[str]:
+    """"small" (B1), "large" (B3) or None: the TPU's route for a window."""
     H, W = x_size
     wh, ww = window
-    if H % wh or W % ww or wh * ww > _LARGE_N:
-        return False
-    PN = _auto_pack_w(W, window) * wh * ww
-    return num_heads * PN * PN * 4 <= _BIAS_VMEM_BUDGET
+    if H % wh or W % ww:
+        return None
+    N = wh * ww
+    if N > _LARGE_N:
+        fits = num_heads * N * N * 2 <= _LARGE_BIAS_BUDGET
+        return "large" if fits else None
+    PN = _auto_pack_w(W, window) * N
+    return "small" if num_heads * PN * PN * 4 <= _BIAS_VMEM_BUDGET else None
 
 
-def stripe_half_supported(x_size: Size2, stripe: Size2, df: int,
-                          num_heads: int) -> bool:
-    """True when the resident-bias TPU stripe kernel (and so this port's)
-    takes it."""
+def _stripe_resident_supported(stripe: Size2, df: int, num_heads: int) -> bool:
+    sh, sw = stripe
+    N1, N2 = sh * sw, (sh // df) * (sw // df)
+    return 2 * num_heads * N2 * N1 * 4 <= _BIAS_VMEM_BUDGET
+
+
+def _stripe_large_tiles(stripe: Size2, df: int, num_heads: int):
+    """(n2_tile, n1_tile) of the TPU's streamed-bias path, or None.  The
+    port's kernels tile on their own; only the admission matters here."""
+    sh, sw = stripe
+    N1, N2 = sh * sw, (sh // df) * (sw // df)
+    n2t = min(N2, max(8, _STRIPE_ATTN_BUDGET // (4 * num_heads * N1)
+                      // 8 * 8))
+    while n2t >= 8 and N2 % n2t:
+        n2t -= 8
+    if n2t < 8 or num_heads * n2t * N1 * 4 > _STRIPE_ATTN_BUDGET:
+        return None
+    rows = max(1, _STRIPE_ATTN_BUDGET // (4 * num_heads * N2) // sw)
+    n1t = min(N1, rows * sw)
+    while n1t >= sw and (N1 % n1t or not (n1t % 128 == 0 or n1t == N1)):
+        n1t -= sw
+    if n1t < sw or num_heads * N2 * n1t * 4 > _STRIPE_ATTN_BUDGET:
+        return None
+    return n2t, n1t
+
+
+def stripe_route(x_size: Size2, stripe: Size2, df: int,
+                 num_heads: int) -> Optional[str]:
+    """"resident" (B2), "large" (B4) or None: the TPU's route for a
+    stripe."""
     H, W = x_size
     sh, sw = stripe
     if H % sh or W % sw or sh % df or sw % df:
-        return False
-    N1, N2 = sh * sw, (sh // df) * (sw // df)
-    return 2 * num_heads * N2 * N1 * 4 <= _BIAS_VMEM_BUDGET
+        return None
+    if _stripe_resident_supported(stripe, df, num_heads):
+        return "resident"
+    return "large" if _stripe_large_tiles(stripe, df, num_heads) else None
 
 
 def _scale(logit_scale: torch.Tensor) -> torch.Tensor:
@@ -94,17 +140,20 @@ def _softmax_times(logits: torch.Tensor, v: torch.Tensor, mm: torch.dtype):
     return (e.to(mm).float() @ v) * rs
 
 
-def _qkv_heads(x: torch.Tensor, wqkv: torch.Tensor,
-               bqkv: Optional[torch.Tensor], num_heads: int, mm: torch.dtype):
-    """(B, nW, N, C) tokens -> q, k, v each (B, nW, h, N, d) in fp32, the
-    projection's operands rounded to mm; channel order [3, heads, d]."""
-    B, nW, N, _ = x.shape
-    qkv = x.float() @ wqkv.to(mm).float()
+def _split_heads(t: torch.Tensor, parts: int, num_heads: int):
+    """(B, nW, N, parts*h*d) -> `parts` tensors (B, nW, h, N, d)."""
+    B, nW, N, Cp = t.shape
+    t = t.reshape(B, nW, N, parts, num_heads, Cp // (parts * num_heads))
+    return t.permute(3, 0, 1, 4, 2, 5).unbind(0)
+
+
+def _project(x, wqkv, bqkv, num_heads, mm, parts):
+    """(B, nW, N, C) tokens -> `parts` projections (B, nW, h, N, d) in
+    fp32 with operands rounded to mm."""
+    t = x.float() @ wqkv.to(mm).float()
     if bqkv is not None:
-        qkv = qkv + bqkv.float()
-    C3 = qkv.shape[-1]
-    qkv = qkv.reshape(B, nW, N, 3, num_heads, C3 // (3 * num_heads))
-    return qkv.permute(3, 0, 1, 4, 2, 5).unbind(0)
+        t = t + bqkv.float()
+    return _split_heads(t, parts, num_heads)
 
 
 def _check_inference(name: str, *tensors) -> None:
@@ -119,9 +168,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _operands(x, wqkv, bqkv, logit_scales, biases, bands):
+def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
+              bias_dtype=torch.float32):
     """Contiguous kernel operands on x's device: w in x's type, fp32 bias
-    vector, scales and position biases, int32 band ids."""
+    vector and scales, position biases in bias_dtype, int32 band ids."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     C3 = wqkv.shape[1]
@@ -134,10 +184,16 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands):
             raise ValueError(f"operand on {t.device}, x on {x.device}")
     return (x.contiguous(), wqkv.to(x.dtype).contiguous(), b,
             [_scale(s).contiguous() for s in logit_scales],
-            [t.float().contiguous() for t in biases],
+            [t.to(bias_dtype).contiguous() for t in biases],
             [None if t is None else t.to(torch.int32).contiguous()
              for t in bands])
 
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ----------------------------------------------------------------- windows
 
 def window_half_ref(x, wqkv, bqkv, logit_scale, bias, window: Size2,
                     bands=None, shift: int = 0) -> torch.Tensor:
@@ -152,7 +208,7 @@ def window_half_ref(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     h = logit_scale.shape[0]
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-    q, k, v = _qkv_heads(window_partition(x, window), wqkv, bqkv, h, mm)
+    q, k, v = _project(window_partition(x, window), wqkv, bqkv, h, mm, 3)
     s = _scale(logit_scale).reshape(h, 1, 1)
     q = (_unit(q) * s).to(mm).float()
     k = _unit(k).to(mm).float()
@@ -164,6 +220,121 @@ def window_half_ref(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     y = y.permute(0, 1, 3, 2, 4).reshape(B, nW, N, h * d)
     return window_reverse(y, window, (H, W)).to(x.dtype)
 
+
+def window_half_large_ref(x, wqkv, bqkv, logit_scale, bias, window: Size2,
+                          bands=None, shift: int = 0) -> torch.Tensor:
+    """Plain PyTorch large-window half, the numerics of B3 (the q-tiled
+    branch of `_window_block_kernel`): B1's math with the bias rounded to
+    bf16 whatever x's type (`pack_window_bias(..., out_dtype=bf16)`).
+    Arguments as in `window_half_ref`."""
+    return window_half_ref(x, wqkv, bqkv, logit_scale,
+                           bias.to(torch.bfloat16).float(), window, bands,
+                           shift)
+
+
+def _check_window(name, x, wqkv, logit_scale, bias, window, bands):
+    B, H, W, C = x.shape
+    wh, ww = window
+    h = logit_scale.shape[0]
+    Cw = wqkv.shape[1] // 3
+    N = wh * ww
+    if wqkv.shape[0] != C or Cw % h or tuple(bias.shape) != (h, N, N):
+        raise ValueError(f"{name}: wqkv {tuple(wqkv.shape)}, bias "
+                         f"{tuple(bias.shape)} do not fit x {tuple(x.shape)}")
+    nW = (H // wh) * (W // ww)
+    if bands is not None and tuple(bands.shape) != (nW, N):
+        raise ValueError(f"{name}: bands {tuple(bands.shape)} != {(nW, N)}")
+    return B, H, W, C, Cw, h
+
+
+def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
+                shift: int = 0, kernels: bool = True) -> torch.Tensor:
+    """Window half, routed as the TPU routes it: small windows to B1,
+    windows of more than 512 tokens to B3 (`window_half_large`).  Each
+    route launches its CUDA kernel for a CUDA x and runs its plain version
+    for a CPU x or when kernels=False.  Arguments as in `window_half_ref`."""
+    B, H, W, C = x.shape
+    h = logit_scale.shape[0]
+    route = window_route((H, W), window, h)
+    if route is None:
+        raise NotImplementedError(
+            f"window_half: no TPU window kernel takes window {window} on "
+            f"{H}x{W} with {h} heads")
+    if route == "large":
+        return window_half_large(x, wqkv, bqkv, logit_scale, bias, window,
+                                 bands, shift, kernels)
+    if not kernels:
+        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
+                               bands, shift)
+    _check_inference("window_half", x, wqkv, bqkv, logit_scale, bias)
+    if not x.is_cuda:
+        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
+                               bands, shift)
+    B, H, W, C, Cw, h = _check_window("window_half", x, wqkv, logit_scale,
+                                      bias, window, bands)
+    wh, ww = window
+    x, w, b, (s,), (bias,), (bands,) = _operands(
+        x, wqkv, bqkv, [logit_scale], [bias], [bands])
+    y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
+    err = cuda_build.library().grlir_window_half(
+        _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands), _ptr(y),
+        B, H, W, C, Cw, h, wh, ww, int(shift), int(x.dtype == torch.bfloat16),
+        _stream(x))
+    cuda_build.check(err, "window_half", f"window {window} at d={Cw // h}")
+    window_half.launches += 1
+    return y
+
+
+window_half.launches = 0
+
+# head dims the large kernels take (their tiles hold 32 columns)
+_LARGE_MAX_D = 32
+
+
+def _check_large_d(name: str, d: int) -> None:
+    if d > _LARGE_MAX_D:
+        raise NotImplementedError(
+            f"{name}: head dim {d} > {_LARGE_MAX_D} is beyond the kernel's "
+            "tiles")
+
+
+def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
+                      bands=None, shift: int = 0,
+                      kernels: bool = True) -> torch.Tensor:
+    """Large-window half (B3): the CUDA kernel of
+    `csrc/window_half_large.cu` for a CUDA x, `window_half_large_ref` for a
+    CPU x or when kernels=False.  Arguments as in `window_half_ref`."""
+    args = (x, wqkv, bqkv, logit_scale, bias, window, bands, shift)
+    if not kernels:
+        return window_half_large_ref(*args)
+    _check_inference("window_half_large", x, wqkv, bqkv, logit_scale, bias)
+    if not x.is_cuda:
+        return window_half_large_ref(*args)
+    B, H, W, C, Cw, h = _check_window("window_half_large", x, wqkv,
+                                      logit_scale, bias, window, bands)
+    wh, ww = window
+    N, d = wh * ww, Cw // h
+    _check_large_d("window_half_large", d)
+    x, w, b, (s,), (bias,), (bands,) = _operands(
+        x, wqkv, bqkv, [logit_scale], [bias], [bands],
+        bias_dtype=torch.bfloat16)
+    nW = (H // wh) * (W // ww)
+    # q, k, v of every window and head, unit-normed and rounded to x's type
+    ws = torch.empty((B * nW, h, 3, N, d), dtype=x.dtype, device=x.device)
+    y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
+    err = cuda_build.library().grlir_window_half_large(
+        _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
+        _ptr(ws), _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift),
+        int(x.dtype == torch.bfloat16), _stream(x))
+    cuda_build.check(err, "window_half_large", f"window {window} at d={d}")
+    window_half_large.launches += 1
+    return y
+
+
+window_half_large.launches = 0
+
+
+# ----------------------------------------------------------------- stripes
 
 def stripe_half_ref(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
                     bias_a2w, bias_w2a, stripe: Size2, df: int, bands=None,
@@ -180,11 +351,8 @@ def stripe_half_ref(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
     sh, sw = stripe
     if shift[0] or shift[1]:
         x = torch.roll(x, (-shift[0], -shift[1]), dims=(1, 2))
-    q, k, v = _qkv_heads(window_partition(x, stripe), wqkv, bqkv, h, mm)
-    a = window_partition(anchor.to(mm), (sh // df, sw // df)).float()
-    Bq, nW, N2, Cs = a.shape
-    a = a.reshape(Bq, nW, N2, h, Cs // h).permute(0, 1, 3, 2, 4)
-    an = _unit(a).to(mm).float()                              # (B, nW, h, N2, d)
+    q, k, v = _project(window_partition(x, stripe), wqkv, bqkv, h, mm, 3)
+    an = _anchor_units(anchor, stripe, df, h, mm)          # (B, nW, h, N2, d)
     kn = (_unit(k) * _scale(logit_scale1).reshape(h, 1, 1)).to(mm).float()
     qn = (_unit(q) * _scale(logit_scale2).reshape(h, 1, 1)).to(mm).float()
     attn1 = an @ kn.transpose(-1, -2) + bias_a2w.float()      # (.., h, N2, N1)
@@ -194,60 +362,142 @@ def stripe_half_ref(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
         attn2 = attn2 + _band_mask(bands, bands_a)
     x1 = _softmax_times(attn1, v.to(mm).float(), mm)          # (.., h, N2, d)
     y = _softmax_times(attn2, x1.to(mm).float(), mm)          # (.., h, N1, d)
-    y = y.permute(0, 1, 3, 2, 4).reshape(Bq, nW, sh * sw, Cs)
-    return window_reverse(y, stripe, (H, W)).to(x.dtype)
+    return _stripe_out(y, stripe, (H, W)).to(x.dtype)
 
 
-def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
-                shift: int = 0, kernels: bool = True) -> torch.Tensor:
-    """Window half: the CUDA kernel for a CUDA x, the plain version for a
-    CPU x or when kernels=False.  Arguments as in `window_half_ref`."""
-    if not kernels:
-        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
-                               bands, shift)
-    _check_inference("window_half", x, wqkv, bqkv, logit_scale, bias)
-    if not x.is_cuda:
-        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
-                               bands, shift)
+def _anchor_units(anchor, stripe: Size2, df: int, num_heads: int, mm):
+    """Anchor tokens of every stripe, unit-normed and rounded to mm:
+    (B, nW, h, N2, d) fp32."""
+    sh, sw = stripe
+    a = window_partition(anchor.to(mm), (sh // df, sw // df)).float()
+    B, nW, N2, Cs = a.shape
+    a = a.reshape(B, nW, N2, num_heads, Cs // num_heads).permute(0, 1, 3, 2, 4)
+    return _unit(a).to(mm).float()
+
+
+def _stripe_out(y, stripe: Size2, x_size: Size2):
+    """(B, nW, h, N1, d) -> (B, H, W, h*d)."""
+    B, nW, h, N1, d = y.shape
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, nW, N1, h * d)
+    return window_reverse(y, stripe, x_size)
+
+
+def _roll_stripe_tokens(x, stripe: Size2, shift: Size2):
+    if shift[0] or shift[1]:
+        x = torch.roll(x, (-shift[0], -shift[1]), dims=(1, 2))
+    return window_partition(x, stripe)
+
+
+def stripe_a2w_large_ref(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                         stripe: Size2, df: int, bands=None, bands_a=None,
+                         shift: Size2 = (0, 0)) -> torch.Tensor:
+    """Plain PyTorch a2w step of the streamed-bias stripe half, the numerics
+    of B4a (`_stripe_a2w_large_kernel`): every anchor token gathers its
+    stripe, x1 = softmax_N1(norm(a) . norm(k)^T * s1 + bias + mask) v, with
+    the bias in x's type and the softmax normalised before it is rounded.
+    Arguments as in `stripe_half_ref`.  Returns x1 (B, nW, h, N2, d) in x's
+    type."""
+    mm = x.dtype
+    h = logit_scale1.shape[0]
+    Cs = wqkv.shape[1] // 3
+    k, v = _project(_roll_stripe_tokens(x, stripe, shift), wqkv[:, Cs:],
+                    None if bqkv is None else bqkv[Cs:], h, mm, 2)
+    an = _anchor_units(anchor, stripe, df, h, mm)
+    kn = _unit(k).to(mm).float()
+    attn = an @ kn.transpose(-1, -2)                          # (.., h, N2, N1)
+    attn = attn * _scale(logit_scale1).reshape(h, 1, 1) + bias_a2w.to(mm).float()
+    if bands is not None:
+        attn = attn + _band_mask(bands_a, bands)
+    p = torch.softmax(attn, -1).to(mm).float()
+    return (p @ v.to(mm).float()).to(mm)
+
+
+def stripe_w2a_large_ref(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
+                         stripe: Size2, df: int, bands=None, bands_a=None,
+                         shift: Size2 = (0, 0)) -> torch.Tensor:
+    """Plain PyTorch w2a step of the streamed-bias stripe half, the numerics
+    of B4b (`_stripe_w2a_large_kernel`): every stripe token takes
+    y = softmax_N2(norm(q) . norm(a)^T * s2 + bias + mask) x1, with the
+    bias in x's type and the softmax normalised before it is rounded.
+    x1: (B, nW, h, N2, d) from the a2w step; other arguments as in
+    `stripe_half_ref`.  Returns (B, H, W, Cs), rolled coordinates."""
+    mm = x.dtype
+    B, H, W, _ = x.shape
+    h = logit_scale2.shape[0]
+    Cs = wqkv.shape[1] // 3
+    (q,) = _project(_roll_stripe_tokens(x, stripe, shift), wqkv[:, :Cs],
+                    None if bqkv is None else bqkv[:Cs], h, mm, 1)
+    an = _anchor_units(anchor, stripe, df, h, mm)
+    qn = _unit(q).to(mm).float()
+    attn = qn @ an.transpose(-1, -2)                          # (.., h, N1, N2)
+    attn = attn * _scale(logit_scale2).reshape(h, 1, 1) + bias_w2a.to(mm).float()
+    if bands is not None:
+        attn = attn + _band_mask(bands, bands_a)
+    p = torch.softmax(attn, -1).to(mm).float()
+    y = p @ x1.to(mm).float()                                 # (.., h, N1, d)
+    return _stripe_out(y, stripe, (H, W)).to(x.dtype)
+
+
+def stripe_half_large_ref(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
+                          bias_a2w, bias_w2a, stripe: Size2, df: int,
+                          bands=None, bands_a=None,
+                          shift: Size2 = (0, 0)) -> torch.Tensor:
+    """Plain PyTorch streamed-bias stripe half (B4): the a2w step, then the
+    w2a step.  Arguments as in `stripe_half_ref`."""
+    x1 = stripe_a2w_large_ref(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                              stripe, df, bands, bands_a, shift)
+    return stripe_w2a_large_ref(x, anchor, x1, wqkv, bqkv, logit_scale2,
+                                bias_w2a, stripe, df, bands, bands_a, shift)
+
+
+def _check_stripe(name, x, anchor, wqkv, logit_scale, stripe, df, bands,
+                  bands_a, bias_a2w=None, bias_w2a=None, x1=None):
+    """Shapes of a stripe call (the given biases and x1 included)."""
     B, H, W, C = x.shape
-    wh, ww = window
+    sh, sw = stripe
     h = logit_scale.shape[0]
-    Cw = wqkv.shape[1] // 3
-    N = wh * ww
-    if not window_half_supported((H, W), window, h):
-        raise NotImplementedError(
-            f"window_half: window {window} on {H}x{W} with {h} heads is "
-            "beyond the small-window kernel; it needs the large-window "
-            "kernel (ROADMAP B3), not ported yet")
-    if wqkv.shape[0] != C or Cw % h or tuple(bias.shape) != (h, N, N):
-        raise ValueError(f"window_half: wqkv {tuple(wqkv.shape)}, bias "
-                         f"{tuple(bias.shape)} do not fit x {tuple(x.shape)}")
-    nW = (H // wh) * (W // ww)
-    if bands is not None and tuple(bands.shape) != (nW, N):
-        raise ValueError(f"window_half: bands {tuple(bands.shape)} != {(nW, N)}")
-    x, w, b, (s,), (bias,), (bands,) = _operands(
-        x, wqkv, bqkv, [logit_scale], [bias], [bands])
-    y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
-    lib = cuda_build.library()
-    err = lib.grlir_window_half(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands), _ptr(y),
-        B, H, W, C, Cw, h, wh, ww, int(shift), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "window_half",
-                     f"window {window} at d={Cw // h} (a window that large "
-                     "waits for the large-window kernel, ROADMAP B3)")
-    window_half.launches += 1
-    return y
-
-
-window_half.launches = 0
+    Cs = wqkv.shape[1] // 3
+    N1, N2 = sh * sw, (sh // df) * (sw // df)
+    nW = (H // sh) * (W // sw)
+    want = [(bias_a2w, (h, N2, N1)), (bias_w2a, (h, N1, N2)),
+            (x1, (B, nW, h, N2, Cs // h))]
+    if (wqkv.shape[0] != C or Cs % h
+            or tuple(anchor.shape) != (B, H // df, W // df, Cs)
+            or any(t is not None and tuple(t.shape) != s for t, s in want)):
+        raise ValueError(f"{name}: operand shapes do not fit x "
+                         f"{tuple(x.shape)}, stripe {stripe}, df {df}")
+    if (bands is None) != (bands_a is None):
+        raise ValueError(f"{name}: pass both bands and bands_a, or neither")
+    if bands is not None and (tuple(bands.shape) != (nW, N1)
+                              or tuple(bands_a.shape) != (nW, N2)):
+        raise ValueError(f"{name}: band ids do not fit the stripes")
+    for t in (anchor, x1):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: operand on {t.device}, x on {x.device}")
+    return B, H, W, C, Cs, h, N1, N2, nW
 
 
 def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
                 bias_w2a, stripe: Size2, df: int, bands=None, bands_a=None,
                 shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
-    """Anchored-stripe half: the CUDA kernel for a CUDA x, the plain version
-    for a CPU x or when kernels=False.  Arguments as in `stripe_half_ref`."""
+    """Anchored-stripe half, routed as the TPU routes it: stripes whose
+    biases fit the resident budget to B2, larger ones to the two B4 steps
+    (`stripe_a2w_large`, then `stripe_w2a_large`).  Each launches its CUDA
+    kernel for a CUDA x and runs its plain version for a CPU x or when
+    kernels=False.  Arguments as in `stripe_half_ref`."""
+    B, H, W, C = x.shape
+    h = logit_scale1.shape[0]
+    route = stripe_route((H, W), stripe, df, h)
+    if route is None:
+        raise NotImplementedError(
+            f"stripe_half: no TPU stripe kernel takes stripe {stripe}/df "
+            f"{df} on {H}x{W} with {h} heads")
+    if route == "large":
+        x1 = stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                              stripe, df, bands, bands_a, shift, kernels)
+        return stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2,
+                                bias_w2a, stripe, df, bands, bands_a, shift,
+                                kernels)
     args = (x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
             bias_w2a, stripe, df, bands, bands_a, shift)
     if not kernels:
@@ -256,46 +506,118 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
                      logit_scale2, bias_a2w, bias_w2a)
     if not x.is_cuda:
         return stripe_half_ref(*args)
-    B, H, W, C = x.shape
     sh, sw = stripe
-    h = logit_scale1.shape[0]
-    Cs = wqkv.shape[1] // 3
-    N1, N2 = sh * sw, (sh // df) * (sw // df)
-    if not stripe_half_supported((H, W), stripe, df, h):
-        raise NotImplementedError(
-            f"stripe_half: stripe {stripe}/df {df} on {H}x{W} with {h} heads "
-            "is beyond the resident-bias kernel; it needs the streamed-bias "
-            "large-stripe kernels (ROADMAP B4), not ported yet")
-    nW = (H // sh) * (W // sw)
-    if (wqkv.shape[0] != C or Cs % h
-            or tuple(anchor.shape) != (B, H // df, W // df, Cs)
-            or tuple(bias_a2w.shape) != (h, N2, N1)
-            or tuple(bias_w2a.shape) != (h, N1, N2)):
-        raise ValueError("stripe_half: operand shapes do not fit x "
-                         f"{tuple(x.shape)}, stripe {stripe}, df {df}")
-    if (bands is None) != (bands_a is None):
-        raise ValueError("stripe_half: pass both bands and bands_a, or neither")
-    if bands is not None and (tuple(bands.shape) != (nW, N1)
-                              or tuple(bands_a.shape) != (nW, N2)):
-        raise ValueError("stripe_half: band ids do not fit the stripes")
+    B, H, W, C, Cs, h, N1, N2, _ = _check_stripe(
+        "stripe_half", x, anchor, wqkv, logit_scale1, stripe, df, bands,
+        bands_a, bias_a2w, bias_w2a)
     x, w, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1, logit_scale2], [bias_a2w, bias_w2a],
         [bands, bands_a])
     anchor = anchor.to(x.dtype).contiguous()
-    if anchor.device != x.device:
-        raise ValueError(f"anchor on {anchor.device}, x on {x.device}")
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
-    lib = cuda_build.library()
-    err = lib.grlir_stripe_half(
+    err = cuda_build.library().grlir_stripe_half(
         _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2), _ptr(b1),
         _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(y), B, H, W, C, Cs, h, sh,
         sw, df, int(shift[0]), int(shift[1]), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(err, "stripe_half",
-                     f"stripe {stripe}/df {df} at d={Cs // h} (waits for the "
-                     "large-stripe kernels, ROADMAP B4)")
+        _stream(x))
+    cuda_build.check(err, "stripe_half", f"stripe {stripe}/df {df} at "
+                     f"d={Cs // h}")
     stripe_half.launches += 1
     return y
 
 
 stripe_half.launches = 0
+
+
+def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                     stripe: Size2, df: int, bands=None, bands_a=None,
+                     shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
+    """a2w step of the streamed-bias stripe half (B4a): the CUDA kernel of
+    `csrc/stripe_half_large.cu` for a CUDA x, `stripe_a2w_large_ref` for a
+    CPU x or when kernels=False.  Returns x1 (B, nW, h, N2, d) in x's
+    type."""
+    args = (x, anchor, wqkv, bqkv, logit_scale1, bias_a2w, stripe, df, bands,
+            bands_a, shift)
+    if not kernels:
+        return stripe_a2w_large_ref(*args)
+    _check_inference("stripe_a2w_large", x, anchor, wqkv, bqkv, logit_scale1,
+                     bias_a2w)
+    if not x.is_cuda:
+        return stripe_a2w_large_ref(*args)
+    sh, sw = stripe
+    B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
+        "stripe_a2w_large", x, anchor, wqkv, logit_scale1, stripe, df, bands,
+        bands_a, bias_a2w=bias_a2w)
+    d = Cs // h
+    _check_large_d("stripe_a2w_large", d)
+    x, w, b, (s1,), (b1,), (bands, bands_a) = _operands(
+        x, wqkv, bqkv, [logit_scale1], [bias_a2w], [bands, bands_a],
+        bias_dtype=x.dtype)
+    anchor = anchor.to(x.dtype).contiguous()
+    # unit-normed anchors, then k (unit-normed) and v of every stripe
+    ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
+    ws_kv = torch.empty((B * nW, h, 2, N1, d), dtype=x.dtype, device=x.device)
+    x1 = torch.empty((B, nW, h, N2, d), dtype=x.dtype, device=x.device)
+    err = cuda_build.library().grlir_stripe_a2w_large(
+        _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(b1),
+        _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_kv), _ptr(x1),
+        B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]),
+        int(x.dtype == torch.bfloat16), _stream(x))
+    cuda_build.check(err, "stripe_a2w_large", f"stripe {stripe}/df {df}")
+    stripe_a2w_large.launches += 1
+    return x1
+
+
+stripe_a2w_large.launches = 0
+
+
+def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
+                     stripe: Size2, df: int, bands=None, bands_a=None,
+                     shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
+    """w2a step of the streamed-bias stripe half (B4b): the CUDA kernel of
+    `csrc/stripe_half_large.cu` for a CUDA x, `stripe_w2a_large_ref` for a
+    CPU x or when kernels=False.  x1 is the a2w step's output.  Returns
+    (B, H, W, Cs), rolled coordinates."""
+    args = (x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a, stripe, df,
+            bands, bands_a, shift)
+    if not kernels:
+        return stripe_w2a_large_ref(*args)
+    _check_inference("stripe_w2a_large", x, anchor, x1, wqkv, bqkv,
+                     logit_scale2, bias_w2a)
+    if not x.is_cuda:
+        return stripe_w2a_large_ref(*args)
+    sh, sw = stripe
+    B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
+        "stripe_w2a_large", x, anchor, wqkv, logit_scale2, stripe, df, bands,
+        bands_a, bias_w2a=bias_w2a, x1=x1)
+    d = Cs // h
+    _check_large_d("stripe_w2a_large", d)
+    x, w, b, (s2,), (b2,), (bands, bands_a) = _operands(
+        x, wqkv, bqkv, [logit_scale2], [bias_w2a], [bands, bands_a],
+        bias_dtype=x.dtype)
+    anchor = anchor.to(x.dtype).contiguous()
+    x1 = x1.to(x.dtype).contiguous()
+    # unit-normed anchors, then unit-normed q of every stripe
+    ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
+    ws_q = torch.empty((B * nW, h, 1, N1, d), dtype=x.dtype, device=x.device)
+    y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
+    err = cuda_build.library().grlir_stripe_w2a_large(
+        _ptr(x), _ptr(anchor), _ptr(x1), _ptr(w), _ptr(b), _ptr(s2),
+        _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_q),
+        _ptr(y), B, H, W, C, Cs, h, sh, sw, df, int(shift[0]),
+        int(shift[1]), int(x.dtype == torch.bfloat16), _stream(x))
+    cuda_build.check(err, "stripe_w2a_large", f"stripe {stripe}/df {df}")
+    stripe_w2a_large.launches += 1
+    return y
+
+
+stripe_w2a_large.launches = 0
+
+KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
+           stripe_w2a_large)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

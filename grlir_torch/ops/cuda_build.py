@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources under `grlir_torch/csrc/` are compiled at first use with `nvcc`
-for `sm_90a` (Hopper) into one shared library with a plain C interface, and
-loaded with ctypes.  The library lands in `build/grlir_torch/` at the root of
-the checkout, named by a hash of the sources and flags, so an edited source
+for `sm_90a` (Hopper), one `nvcc` process per source, all started together,
+and linked into one shared library with a plain C interface, loaded with
+ctypes.  The library lands in `build/grlir_torch/` at the root of the
+checkout, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once.  There is no fallback: a
 missing `nvcc` or a failed build raises.
 """
@@ -20,10 +21,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "grlir_torch"
-SOURCES = ("window_half.cu", "stripe_half.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("window_half.cu", "stripe_half.cu", "window_half_large.cu",
+           "stripe_half_large.cu")
+HEADERS = ("common.cuh", "large_attn.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of each exported function (pointers as c_void_p: ctypes would
@@ -31,6 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "grlir_window_half": [_P] * 7 + [_I] * 10 + [_P],
     "grlir_stripe_half": [_P] * 11 + [_I] * 12 + [_P],
+    "grlir_window_half_large": [_P] * 8 + [_I] * 10 + [_P],
+    "grlir_stripe_a2w_large": [_P] * 11 + [_I] * 12 + [_P],
+    "grlir_stripe_w2a_large": [_P] * 12 + [_I] * 12 + [_P],
 }
 
 _library = None
@@ -62,21 +67,36 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless a library of these sources exists.
 
-    The compiler's report (`-Xptxas -v`: registers, shared memory, spills
-    of every kernel) is kept beside the library in `build.log`."""
+    Each source compiles to an object in its own nvcc process, all at once;
+    the objects then link into the library.  The compiler's report
+    (`-Xptxas -v`: registers, shared memory, spills of every kernel) is kept
+    beside the library in `build.log`."""
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = find_nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [" ".join(c) + "\n" + log for c, p, log in zip(cmds, procs, logs)
+              if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            failed.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+    (BUILD_DIR / "build.log").write_text("".join(
+        " ".join(c) + "\n" + log for c, log in zip(cmds, logs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -100,7 +120,8 @@ def check(err: int, kernel: str, what: str) -> None:
     """Raise for a non-zero return of a launch function."""
     if err == -1:
         raise NotImplementedError(
-            f"{kernel}: {what} needs more shared memory than one block has")
+            f"{kernel}: {what} is beyond the kernel (head dim or shared "
+            "memory of one block)")
     if err != 0:
         msg = library().grlir_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: {msg} ({err})")

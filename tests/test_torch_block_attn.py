@@ -132,18 +132,144 @@ def test_grad_requiring_input_raises(data):
                                           ((16, 16), 2), ((32, 32), 2),
                                           ((32, 32), 6)])
 def test_window_guard_restates_pallas(size, window, heads):
-    """The port takes what the small-window Pallas branch takes (N <= 512);
-    larger windows belong to the q-tiled branch (B3)."""
-    want = (jba.window_half_supported(size, window, heads)
-            and window[0] * window[1] <= jba._LARGE_N)
-    assert tba.window_half_supported(size, window, heads) == want
+    """The port takes what the Pallas window kernel takes, small windows
+    (N <= 512) on B1's route and larger ones on B3's."""
+    route = tba.window_route(size, window, heads)
+    assert (route is not None) == jba.window_half_supported(size, window, heads)
+    if route is not None:
+        large = window[0] * window[1] > jba._LARGE_N
+        assert route == ("large" if large else "small")
 
 
 @pytest.mark.parametrize("size", [(256, 256), (32, 48), (1024, 1024)])
 @pytest.mark.parametrize("stripe,df,heads", [
     ((8, 64), 4, 2), ((64, 8), 4, 3), ((8, 256), 4, 3), ((64, 64), 2, 3),
-    ((8, 12), 4, 2)])
+    ((8, 12), 4, 2), ((64, 128), 2, 3), ((128, 64), 2, 3), ((256, 256), 2, 6)])
 def test_stripe_guard_restates_pallas(size, stripe, df, heads):
-    want = (jba.stripe_half_supported(size, stripe, df, heads)
-            and jba._stripe_resident_supported(stripe, df, heads))
-    assert tba.stripe_half_supported(size, stripe, df, heads) == want
+    """The port takes what the Pallas stripe kernels take: resident biases
+    on B2's route, streamed ones on B4's."""
+    route = tba.stripe_route(size, stripe, df, heads)
+    assert (route is not None) == jba.stripe_half_supported(size, stripe, df, heads)
+    if route is not None:
+        resident = jba._stripe_resident_supported(stripe, df, heads)
+        assert route == ("resident" if resident else "large")
+        if not resident:
+            assert (tba._stripe_large_tiles(stripe, df, heads)
+                    == jba._stripe_large_tiles(stripe, df, heads))
+
+
+def test_unrouted_geometries_raise(data):
+    """A geometry that no TPU kernel takes raises on either path; nothing
+    falls back."""
+    args, _ = _window_args(data, False)
+    x, *rest = map(_t, args)
+    for kernels in (True, False):
+        with pytest.raises(NotImplementedError, match="no TPU window kernel"):
+            tba.window_half(x[:, :20], *rest, WIN, kernels=kernels)
+    sargs, _, _ = _stripe_args(data, (8, 16), False)
+    sx, sa, *srest = map(_t, sargs)
+    with pytest.raises(NotImplementedError, match="no TPU stripe kernel"):
+        tba.stripe_half(sx[:, :, :24], sa[:, :, :6], *srest, (8, 16), DF)
+
+
+# B3: one 32x32 window (N = 1024 > _LARGE_N), the q-tiled Pallas branch
+LW = (32, 32)
+LN = LW[0] * LW[1]
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_half_large_ref_matches_pallas(data, shifted):
+    """window_half_large_ref against the q-tiled branch of the Pallas window
+    kernel (interpret mode) at 32x32, shifted and unshifted; the bias is
+    pre-rounded to bf16, the type the large branch stores it in."""
+    assert tba.window_route((H, W), LW, HEADS) == "large"
+    rng = np.random.default_rng(11)
+    bias = torch.from_numpy(
+        (rng.standard_normal((HEADS, LN, LN)) * 0.5).astype(np.float32)
+    ).to(torch.bfloat16).float().numpy()
+    bands = rng.integers(0, 3, (1, LN)).astype(np.int32) if shifted else None
+    shift = LW[0] // 2 if shifted else 0
+    args = (data["x"], data["wqkv"], data["bqkv"], data["ls"], bias)
+    want = np.asarray(jba.fused_window_half(
+        *map(_j, args), LW, bands=_j(bands), shift=shift, interpret=True))
+    got = tba.window_half_large_ref(*map(_t, args), LW, bands=_t(bands),
+                                    shift=shift)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+    # the router takes the same function on CPU tensors
+    routed = tba.window_half(*map(_t, args), LW, bands=_t(bands), shift=shift)
+    assert torch.equal(routed, got)
+
+
+def _large_stripe_case(stripe, df, shifted, size, seed):
+    rng = np.random.default_rng(seed)
+    sh, sw = stripe
+    Hs, Ws = size
+    N1, N2 = sh * sw, (sh // df) * (sw // df)
+    x = rng.standard_normal((B, Hs, Ws, C)).astype(np.float32)
+    anchor = rng.standard_normal((B, Hs // df, Ws // df, CW)).astype(np.float32)
+    b1 = (rng.standard_normal((HEADS, N2, N1)) * 0.5).astype(np.float32)
+    b2 = (rng.standard_normal((HEADS, N1, N2)) * 0.5).astype(np.float32)
+    bands = bands_a = None
+    if shifted:
+        nW = (Hs // sh) * (Ws // sw)
+        bands = rng.integers(0, 3, (nW, N1)).astype(np.int32)
+        bands_a = rng.integers(0, 3, (nW, N2)).astype(np.int32)
+    return (x, anchor, data_w(rng), *data_b(rng), b1, b2), bands, bands_a
+
+
+def data_w(rng):
+    return (rng.standard_normal((C, 3 * CW)) * 0.05).astype(np.float32)
+
+
+def data_b(rng):
+    return ((rng.standard_normal(3 * CW) * 0.05).astype(np.float32),
+            np.array([math.log(8.0), 5.0], np.float32).reshape(HEADS, 1, 1),
+            np.array([math.log(12.0), 4.0], np.float32).reshape(HEADS, 1, 1))
+
+
+# (16, 16) and (16, 8) at df 2 route to the streamed-bias kernels only with
+# both sides' budgets cut (as tests/test_block_attn.py does, with a resident
+# budget low enough for the vertical stripe too); (64, 64)/df 2, GRL-base's
+# eval stripe, takes that route at the real budgets
+@pytest.mark.parametrize("stripe,size,patch", [
+    ((16, 16), (32, 32), True), ((16, 8), (32, 32), True),
+    ((64, 64), (64, 64), False)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_half_large_ref_matches_pallas(stripe, size, patch, shifted,
+                                              monkeypatch):
+    df = 2
+    if patch:
+        for mod in (jba, tba):
+            monkeypatch.setattr(mod, "_BIAS_VMEM_BUDGET", 50_000)
+            monkeypatch.setattr(mod, "_STRIPE_ATTN_BUDGET", 64 * 1024)
+    assert tba.stripe_route(size, stripe, df, HEADS) == "large"
+    assert not jba._stripe_resident_supported(stripe, df, HEADS)
+    args, bands, bands_a = _large_stripe_case(stripe, df, shifted, size, 12)
+    shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+    if shifted:   # the anchor arrives rolled, as the block passes it
+        args = (args[0], np.roll(args[1], (-shift[0] // df, -shift[1] // df),
+                                 axis=(1, 2)), *args[2:])
+    want = np.asarray(jba.fused_stripe_half(
+        *map(_j, args), stripe, df, bands=_j(bands), bands_a=_j(bands_a),
+        shift=shift, interpret=True))
+    got = tba.stripe_half_large_ref(*map(_t, args), stripe, df,
+                                    bands=_t(bands), bands_a=_t(bands_a),
+                                    shift=shift)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+    routed = tba.stripe_half(*map(_t, args), stripe, df, bands=_t(bands),
+                             bands_a=_t(bands_a), shift=shift)
+    assert torch.equal(routed, got)
+
+
+def test_large_routes_round_as_their_tpu_kernels():
+    """The large-window route differs from the small one exactly where the
+    TPU kernels do: B3 rounds its bias to bf16 even for fp32 x."""
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((1, 32, 32, C)).astype(np.float32))
+    w = torch.from_numpy(data_w(rng))
+    bq, ls1, ls2 = map(torch.from_numpy, data_b(rng))
+    bias = torch.from_numpy(rng.standard_normal((HEADS, LN, LN)).astype(np.float32))
+    large = tba.window_half_large_ref(x, w, bq, ls1, bias, LW)
+    small = tba.window_half_ref(x, w, bq, ls1, bias, LW)
+    rounded = tba.window_half_ref(x, w, bq, ls1, bias.bfloat16().float(), LW)
+    assert not torch.equal(large, small) and torch.equal(large, rounded)

@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
+from grlir.models.blocks import CAB as JCAB
 from grlir.models.blocks import EfficientMixAttnTransformerBlock as JBlock
 from grlir.ops.geometry import GeometryConfig
+from grlir_torch.models.blocks import CAB as TCAB
 from grlir_torch.models.blocks import EfficientMixAttnTransformerBlock as TBlock
 from grlir_torch.models.grl import geometry_tensors
 from grlir_torch.utils.convert import jax_params_to_state_dict
@@ -23,13 +25,24 @@ SIZE = (32, 48)   # non-square: the V stripes are not the H stripes reversed
 def test_block_matches_jax(i):
     """Position i: window shift on even blocks, H/V stripes on even/odd,
     stripe shift on i % 4 in {2, 3} (grlir/models/grl.py:243-276)."""
+    _check_block(i, local=False)
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_block_with_cab_matches_jax(i):
+    """The same positions with GRL-base's CAB branch beside the attention:
+    x + norm1(attn(x)) + CAB(x)."""
+    _check_block(i, local=True)
+
+
+def _check_block(i, local):
     sched = dict(window_shift=i % 2 == 0, stripe_type="H" if i % 2 == 0 else "W",
                  stripe_shift=i % 4 in (2, 3))
     jblock = JBlock(dim=DIM, num_heads_w=HEADS, num_heads_s=HEADS,
                     window_size=(WINDOW, WINDOW), stripe_size_cfg=STRIPE,
                     stripe_groups_cfg=GROUPS, mlp_ratio=2.0,
                     anchor_window_down_factor=DF, d_major=True, attn_io="cm",
-                    **sched)
+                    local_connection=local, **sched)
     gcfg = GeometryConfig((WINDOW, WINDOW), STRIPE, GROUPS, DF)
     rng = np.random.default_rng(i)
     x = rng.standard_normal((2, *SIZE, DIM)).astype(np.float32)
@@ -39,9 +52,26 @@ def test_block_matches_jax(i):
 
     tblock = TBlock(DIM, HEADS, HEADS, WINDOW, stripe_size=STRIPE,
                     stripe_groups=GROUPS, mlp_ratio=2.0, df=DF,
-                    **sched).eval()
+                    local_connection=local, **sched).eval()
     tblock.load_state_dict(jax_params_to_state_dict(params), strict=True)
     with torch.no_grad():
         got = tblock(torch.from_numpy(x), geometry_tensors(gcfg, SIZE, "cpu"),
                      torch.float32, kernels=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+# GRL-base's width: C = 180 compresses to 45 and squeezes to 10 channels
+@pytest.mark.parametrize("dim,size", [(180, (16, 24)), (36, (20, 12))])
+def test_cab_matches_jax(dim, size):
+    """CAB: 3x3 conv to C/4, exact GELU (fp32), 3x3 conv back, channel
+    attention with reduction 18."""
+    rng = np.random.default_rng(dim)
+    x = rng.standard_normal((2, *size, dim)).astype(np.float32)
+    jcab = JCAB()
+    params = random_params(jcab, rng, jnp.asarray(x))
+    want = np.asarray(jax.jit(jcab.apply)(params, jnp.asarray(x)))
+    tcab = TCAB(dim).eval()
+    tcab.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    with torch.no_grad():
+        got = tcab(torch.from_numpy(x), torch.float32)
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)

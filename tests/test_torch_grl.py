@@ -24,13 +24,22 @@ TRUNK = dict(embed_dim=32, depths=(2, 2), num_heads_window=(2, 2),
              anchor_window_down_factor=4)
 
 
-def _pair(upsampler, upscale, seed, jax_kernels=False):
+# GRL-base's trunk (CAB on every block) at its eval geometry (window 32,
+# fixed 64x64 stripes, anchor df 2), cut to embed 36 (3 + 3 heads of d = 6)
+# and one stage of four blocks, so every schedule position runs once
+BASE_TRUNK = dict(embed_dim=36, depths=(4,), num_heads_window=(3,),
+                  num_heads_stripe=(3,), window_size=32, stripe_size=(64, 64),
+                  stripe_groups=(None, None), stripe_shift=True, mlp_ratio=2.0,
+                  anchor_window_down_factor=2, local_connection=True)
+
+
+def _pair(upsampler, upscale, seed, jax_kernels=False, trunk=TRUNK):
     rng = np.random.default_rng(seed)
-    jcfg = JConfig(**TRUNK, upsampler=upsampler, upscale=upscale,
+    jcfg = JConfig(**trunk, upsampler=upsampler, upscale=upscale,
                    drop_path_rate=0.0, use_pallas_attention=jax_kernels)
     jmodel = JGRL(jcfg)
     params = random_params(jmodel, rng, jnp.zeros((1, 32, 32, 3), jnp.float32))
-    tmodel = GRL(GRLConfig(**TRUNK, upsampler=upsampler, upscale=upscale)).eval()
+    tmodel = GRL(GRLConfig(**trunk, upsampler=upsampler, upscale=upscale)).eval()
     tmodel.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return jmodel, params, tmodel, rng
 
@@ -57,7 +66,26 @@ def test_grl_matches_jax(upsampler, upscale, size, jax_kernels):
     np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["tiny", "small"])
+@pytest.mark.parametrize("upsampler,upscale", [("pixelshuffle", 2), ("", 1)])
+def test_grl_base_trunk_matches_jax_v3(upsampler, upscale):
+    """A GRL with CAB at GRL-base's eval geometry against grlir's v3 path in
+    interpret mode: at 64x64 every window half takes the large-window route
+    (B3) and every stripe half the streamed-bias one (B4)."""
+    from grlir_torch.ops import block_attn as tba
+
+    assert tba.window_route((64, 64), (32, 32), 3) == "large"
+    assert tba.stripe_route((64, 64), (64, 64), 2, 3) == "large"
+    jmodel, params, tmodel, rng = _pair(upsampler, upscale, 1, "v3",
+                                        BASE_TRUNK)
+    x = rng.random((1, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(x)))
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x)).numpy()
+    assert got.shape == (1, 64 * upscale, 64 * upscale, 3)
+    np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["tiny", "small", "base"])
 def test_state_dict_keys_map_from_jax(name):
     """The port's state_dict keys are exactly flax_path_to_torch_key over the
     JAX params, and converted JAX weights load with strict=True."""
@@ -75,8 +103,11 @@ def test_state_dict_keys_map_from_jax(name):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="CAB"):
-        GRL(zoo.GRL_BASE)
+    """GRL-base builds now; plain stripe attention (df 1) and unknown kernel
+    modes still raise."""
+    GRL(replace(zoo.GRL_BASE, depths=(1,)))
+    with pytest.raises(NotImplementedError, match="anchor_window_down_factor"):
+        GRL(replace(zoo.GRL_TINY, anchor_window_down_factor=1))
     with pytest.raises(ValueError, match="kernels"):
         GRL(replace(zoo.GRL_TINY, kernels="v3"))
 
