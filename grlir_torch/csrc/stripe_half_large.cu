@@ -26,7 +26,7 @@
 // (large_attn.cuh).  At GRL-base's dn tile (8 stripes x 3 heads) that is
 // 1536 a2w and 6144 w2a blocks.  The work is 4 N1 N2 d FMAs a stripe and
 // head (plus a third again for the second logit pass), on CUDA cores in
-// fp32 on operands rounded to x's type: FMA issue bounds it, not HBM (the
+// fp32 on operands rounded to x's type: FMA throughput bounds it, not HBM (the
 // biases, N1 N2 values a head and direction, are read once per block row
 // from L2).  Tensor cores (mma/wgmma) are later work.
 #include "large_attn.cuh"

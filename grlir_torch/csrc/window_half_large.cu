@@ -19,7 +19,7 @@
 // attention kernel runs one block per 32 query rows, streaming k and v
 // through shared memory (large_attn.cuh).  The FLOPs (2 N^2 d a head for
 // the attention, 3 N C d for the projection) run on CUDA cores in fp32 on
-// operands rounded to x's type, so FMA issue bounds it, not HBM: at 256^2
+// operands rounded to x's type, so FMA throughput bounds it, not HBM: at 256^2
 // the kernel reads x once and the bias once per block from L2.  Tensor
 // cores (mma/wgmma) are later work.
 #include "large_attn.cuh"

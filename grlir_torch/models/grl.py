@@ -2,9 +2,9 @@
 `grlir.models.grl`).
 
 Geometry (position-bias tables, indices, shift-band ids) comes from the
-port's numpy builder (`grlir_torch.ops.geometry`), once per padded input
-size and device, and is held as plain tensors on the module, never in the
-state_dict.
+port's numpy geometry code (`grlir_torch.ops.geometry`), once per padded
+input size and device, and is held as plain tensors on the module, never
+in the state_dict.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ indices and shift-band ids, as numpy arrays of static shapes.
 The port's own copy of what it uses from `grlir.ops.geometry`; the tests
 hold the two equal array for array.  Built on the host once per padded
 input size; the model turns the arrays into tensors on its device.  The
-one-hot bias factors of the JAX builder are left out: the port gathers the
+one-hot bias factors of the JAX version are left out: the port gathers the
 bias by index.
 """
 
