@@ -22,7 +22,18 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      two SR requests and one tiled denoising request (its main path, counts
      reset just before), each against the plain path; timing of each kernel
      against its plain version and the nearest PyTorch library composition,
-     the x4 forward in LR megapixels a second, and the denoising tile.
+     the x4 forward in LR megapixels a second, and the denoising tile;
+  5. the fused engines (slice 3: B5 `flash_rect_attention`, B6
+     `fused_window_attention_qkv`, B7a `fused_cosine_attention`, B7b
+     `fused_cosine_attention_packed`): each kernel vs its plain version at
+     the main path's shapes; GRL-S x4 with engine "fused" at 256^2 and 128^2
+     (exact launches a forward), engines "window" and "stripe", fp32 64^2,
+     and three served requests, each against the plain path; GRL-base at its
+     eval geometry with engine "fused" (120 B5 launches a forward, the x4
+     256^2 forward timed); the repair of geometries no TPU kernel takes (a
+     GRL-base dn 1080x1920 frame restored whole in engine v3, depth cut to
+     one stage of four blocks); timing of each kernel.
+Every kernel path holds `block_attn.unrouted_halves` at 0.
 Then one JSON line of per-kernel results, the nvidia-smi line, and last the
 result line.  Exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
@@ -58,6 +69,10 @@ REPLACES = {
     "window_half_large": "grlir/ops/pallas/block_attn.py:311",
     "stripe_a2w_large": "grlir/ops/pallas/block_attn.py:1037",
     "stripe_w2a_large": "grlir/ops/pallas/block_attn.py:1104",
+    "flash_rect_attention": "grlir/ops/pallas/flash_attention.py:32",
+    "fused_window_attention_qkv": "grlir/ops/pallas/attention.py:159",
+    "fused_cosine_attention": "grlir/ops/pallas/attention.py:32",
+    "fused_cosine_attention_packed": "grlir/ops/pallas/attention.py:308",
 }
 SOURCES = {
     "window_half": "grlir_torch/csrc/window_half.cu",
@@ -65,7 +80,16 @@ SOURCES = {
     "window_half_large": "grlir_torch/csrc/window_half_large.cu",
     "stripe_a2w_large": "grlir_torch/csrc/stripe_half_large.cu",
     "stripe_w2a_large": "grlir_torch/csrc/stripe_half_large.cu",
+    "flash_rect_attention": "grlir_torch/csrc/flash_attention.cu",
+    "fused_window_attention_qkv": "grlir_torch/csrc/cosine_attention.cu",
+    "fused_cosine_attention": "grlir_torch/csrc/cosine_attention.cu",
+    "fused_cosine_attention_packed": "grlir_torch/csrc/cosine_attention.cu",
 }
+# the operand type each TPU kernel computes its products in, for the bound:
+# B1-B5 round their operands to the input type (bf16 here), B6/B7 compute
+# in fp32 whatever the input
+COMPUTE_TYPE = {k: torch.float32 if k.startswith("fused_") else torch.bfloat16
+                for k in REPLACES}
 
 
 def nvidia_smi() -> str:
@@ -113,7 +137,8 @@ def bound_ms(n_bytes: float, flops: float, dtype):
 
 
 KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
-                "anchor_units_kernel", "attend_kernel")
+                "anchor_units_kernel", "attend_kernel", "tokens_major_kernel",
+                "cosine_attention_kernel")
 
 
 def ptxas_report(log: str):
@@ -173,8 +198,10 @@ def main() -> int:
     from grlir_torch.engines.inference import Restorer
     from grlir_torch.models import zoo
     from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
+    from grlir_torch.ops import attention as tatt
     from grlir_torch.ops import block_attn as ba
     from grlir_torch.ops import cuda_build
+    from grlir_torch.ops import flash_attention as tfa
     from grlir_torch.ops.geometry import get_stripe_info
     from grlir_torch.ops.layout import window_partition, window_reverse
 
@@ -358,14 +385,26 @@ def main() -> int:
         with torch.no_grad():
             k_ms, p_ms = ab_ms(lambda: fn(xb, False), lambda: fn(xb, True), runs, warmup)
             l_ms = time_ms(lambda: lib(xb), runs, warmup)
-        b_ms, b_by = bound_ms(*cost(xb), torch.bfloat16)
+        b_ms, b_by = bound_ms(*cost(xb), COMPUTE_TYPE[kname.split(" ")[0]])
         print(f"[time] {kname} {label} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"library composition {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{smi}]")
         timing[kname] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
 
+    all_kernels = ba.KERNELS + tfa.KERNELS + tatt.KERNELS
+
     def counts():
-        return {k.__name__: k.launches for k in ba.KERNELS}
+        return {k.__name__: k.launches for k in all_kernels}
+
+    def expect(**launched):
+        """A counts() dict: the given launches, 0 for every other kernel."""
+        return {k.__name__: launched.get(k.__name__, 0) for k in all_kernels}
+
+    def reset_counts():
+        """Every launch count and block_attn.unrouted_halves to 0."""
+        ba.reset_launches()
+        for k in all_kernels:
+            k.launches = 0
 
     max_err, timing, served = {}, {}, {}
 
@@ -408,17 +447,16 @@ def main() -> int:
         lr = torch.rand(1, *hw, 3, generator=g).to(dev)
         n_blocks = sum(cfg.depths)
         with torch.no_grad():
-            ba.reset_launches()
+            reset_counts()
             y_k = model(lr)
             torch.cuda.synchronize()
             per_fwd = counts()
             y_p = plain(lr)
         print(f"[model] GRL-S x4 bf16 {GRL_S_HW}^2: out {tuple(y_k.shape)}, launches "
-              f"{per_fwd} per forward, PSNR kernels vs plain {psnr(y_k, y_p):.2f} dB, "
-              f"rel L2 {rel_l2(y_k, y_p):.3e}")
-        check(per_fwd == {"window_half": n_blocks, "stripe_half": n_blocks,
-                          "window_half_large": 0, "stripe_a2w_large": 0,
-                          "stripe_w2a_large": 0}, f"GRL-S launches {per_fwd}")
+              f"{per_fwd} per forward, unrouted halves {ba.unrouted_halves}, PSNR "
+              f"kernels vs plain {psnr(y_k, y_p):.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
+        check(per_fwd == expect(window_half=n_blocks, stripe_half=n_blocks)
+              and ba.unrouted_halves == 0, f"GRL-S launches {per_fwd}")
         check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
               and bool(torch.isfinite(y_k).all()), "bf16 model output")
         check(psnr(y_k, y_p) >= MODEL_MIN_PSNR, f"bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -442,14 +480,15 @@ def main() -> int:
             ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
              {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
         ]
-        ba.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         outs = [Restorer(model, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        got = counts()
+        got, unrouted = counts(), ba.unrouted_halves
         served.update(window_half=got["window_half"], stripe_half=got["stripe_half"])
-        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}")
+        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}, unrouted "
+              f"halves {unrouted}")
         for (label, img, kw), out in zip(requests, outs):
             ref = Restorer(plain, dev, scale=4, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -460,8 +499,8 @@ def main() -> int:
                   f"PSNR vs plain {p:.2f} dB")
             check(tuple(out.shape) == (bsz, 4 * h_, 4 * w_, 3) and finite, label)
             check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
-        check(served["window_half"] == served["stripe_half"] == 4 * n_blocks
-              and got["window_half_large"] == got["stripe_a2w_large"] == 0,
+        check(got == expect(window_half=4 * n_blocks, stripe_half=4 * n_blocks)
+              and unrouted == 0,
               f"GRL-S served launches {got} != 4 forwards x {n_blocks}")
 
     with Phase("GRL-S timing"):
@@ -541,7 +580,7 @@ def main() -> int:
         lr = torch.rand(1, BASE_MODEL_HW, BASE_MODEL_HW, 3, generator=g).to(dev)
         mem = {}
         with torch.no_grad():
-            ba.reset_launches()
+            reset_counts()
             torch.cuda.reset_peak_memory_stats()
             y_k = base(lr)
             torch.cuda.synchronize()
@@ -556,9 +595,9 @@ def main() -> int:
               f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, PSNR kernels vs "
               f"plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, max_memory_allocated "
               f"kernels {mem['kernels']:.2f} GiB, plain {mem['plain']:.2f} GiB")
-        check(per_fwd == {"window_half": 0, "stripe_half": 0, "window_half_large": n_blocks,
-                          "stripe_a2w_large": n_blocks, "stripe_w2a_large": n_blocks},
-              f"GRL-base launches {per_fwd}")
+        check(per_fwd == expect(window_half_large=n_blocks, stripe_a2w_large=n_blocks,
+                                stripe_w2a_large=n_blocks) and ba.unrouted_halves == 0,
+              f"GRL-base launches {per_fwd}, unrouted halves {ba.unrouted_halves}")
         check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
               and bool(torch.isfinite(y_k).all()), "GRL-base bf16 output")
         check(p >= MODEL_MIN_PSNR, f"GRL-base bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -595,16 +634,17 @@ def main() -> int:
              torch.rand(1, 321, 481, 3, generator=g), tiled),
         ]
         forwards = 1 + 1 + 3   # the dn request: 6 tiles in batches of 2
-        ba.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         outs = [Restorer(m, dev, scale=sc, **kw)(img.numpy())
                 for _, m, _, sc, img, kw in requests]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        got = counts()
+        got, unrouted = counts(), ba.unrouted_halves
         served.update({k: got[k] for k in ("window_half_large", "stripe_a2w_large",
                                            "stripe_w2a_large")})
-        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}")
+        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, unrouted "
+              f"halves {unrouted}")
         for (label, _, m_plain, sc, img, kw), out in zip(requests, outs):
             ref = Restorer(m_plain, dev, scale=sc, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -616,10 +656,9 @@ def main() -> int:
                   f"PSNR vs plain {p:.2f} dB{resid}")
             check(tuple(out.shape) == (bsz, sc * h_, sc * w_, 3) and finite, label)
             check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
-        check(got == {"window_half": 0, "stripe_half": 0,
-                      "window_half_large": forwards * n_blocks,
-                      "stripe_a2w_large": forwards * n_blocks,
-                      "stripe_w2a_large": forwards * n_blocks},
+        check(got == expect(window_half_large=forwards * n_blocks,
+                            stripe_a2w_large=forwards * n_blocks,
+                            stripe_w2a_large=forwards * n_blocks) and unrouted == 0,
               f"GRL-base served launches {got} != {forwards} forwards x {n_blocks}")
         d32 = GRL(dn_cfg).eval().to(dev)
         q32 = GRL(replace(dn_cfg, kernels=False)).eval().to(dev)
@@ -661,6 +700,320 @@ def main() -> int:
               f"{k_ms / 2:.3f} ms a tile, plain {p_ms / 2:.3f} ms a tile; "
               f"max_memory_allocated kernels {mem['dn kernels']:.2f} GiB, plain "
               f"{mem['dn plain']:.2f} GiB [{smi}]")
+
+    # 5. the fused engines (slice 3)
+    # Cases as above: fn(t, kernels) runs the kernel's wrapper with t as its
+    # first operand, the others cast to t's type; lib(t) is one PyTorch
+    # attention call on the same operands; cost(t) the bytes and FLOPs.
+
+    def dense_mask(bq, bk):
+        return None if bq is None else torch.where(
+            bq[:, :, None] != bk[:, None, :], -100.0, 0.0)
+
+    def flash_case(q, k, v, ls, bias, bq, bk):
+        """B5 on channel-major q (B, nW, h, d, N1), k, v (.., d, N2)."""
+        h = ls.shape[0]
+
+        def fn(t, kern):
+            return tfa.flash_rect_attention(t, k.to(t.dtype), v.to(t.dtype), ls, bias, bq,
+                                            bk, kernels=kern)
+
+        def lib(t):
+            s_ = ba._scale(ls).reshape(h, 1, 1).to(t.dtype)
+            tq, tk, tv = (u.to(t.dtype).transpose(-1, -2) for u in (t, k, v))
+            y = sdpa(F.normalize(tq, dim=-1) * s_, F.normalize(tk, dim=-1), tv,
+                     bias.to(t.dtype), band_mask(bq, bk))
+            return y.transpose(-1, -2)
+
+        def cost(t):
+            it = t.element_size()
+            B_, nW, _, d, N1 = t.shape
+            N2 = k.shape[-1]
+            n = 2 * t.numel() * it + 2 * k.numel() * it + bias.numel() * it + nbytes(bq, bk)
+            return n, 4 * B_ * nW * h * N1 * N2 * d
+
+        return fn, lib, cost
+
+    def window_qkv_case(ls, bias, bands):
+        """B6 on channel-major qkv (B, nW, 3C, N)."""
+        h = ls.shape[0]
+
+        def fn(t, kern):
+            return tatt.fused_window_attention_qkv(t, ls, bias, h, bands, kernels=kern)
+
+        def lib(t):
+            B_, nW, C3, N = t.shape
+            q, k, v = (p.reshape(B_, nW, h, C3 // (3 * h), N).transpose(-1, -2)
+                       for p in t.chunk(3, 2))
+            s_ = ba._scale(ls).reshape(h, 1, 1).to(t.dtype)
+            y = sdpa(F.normalize(q, dim=-1) * s_, F.normalize(k, dim=-1), v, bias,
+                     band_mask(bands, bands))
+            return y.transpose(-1, -2).reshape(B_, nW, C3 // 3, N)
+
+        def cost(t):
+            B_, nW, C3, N = t.shape
+            n = t.numel() * t.element_size() * 4 // 3 + nbytes(bias, bands)
+            return n, 4 * B_ * nW * N * N * (C3 // 3)
+
+        return fn, lib, cost
+
+    def cosine_case(k, v, ls, bias, mask, pack=0):
+        """B7a (pack 0) or B7b on token-major q (B, nW, h, N1, d), k, v;
+        mask (nW, N1, N2) fp32 or None."""
+        h = ls.shape[0]
+
+        def fn(t, kern):
+            args = (t, k.to(t.dtype), v.to(t.dtype), ls, bias, mask)
+            if pack:
+                return tatt.fused_cosine_attention_packed(*args, pack=pack, kernels=kern)
+            return tatt.fused_cosine_attention(*args, kernels=kern)
+
+        def lib(t):
+            s_ = ba._scale(ls).reshape(h, 1, 1).to(t.dtype)
+            return sdpa(F.normalize(t, dim=-1) * s_, F.normalize(k.to(t.dtype), dim=-1),
+                        v.to(t.dtype), bias, None if mask is None else mask[:, None])
+
+        def cost(t):
+            it = t.element_size()
+            B_, nW, _, N1, d = t.shape
+            N2 = k.shape[3]
+            n = 2 * t.numel() * it + 2 * k.numel() * it + nbytes(bias, mask)
+            return n, 4 * B_ * nW * h * N1 * N2 * d
+
+        return fn, lib, cost
+
+    s_cfg = zoo.GRL_SMALL
+    with Phase("fused engines kernels"):
+        cases_f = []
+        heads, d = s_cfg.num_heads_window[0], s_cfg.embed_dim // 2 // s_cfg.num_heads_window[0]
+        ls = torch.tensor([math.log(10.0), 5.0], device=dev).reshape(heads, 1, 1)
+        # B6 and B7b: GRL-S 256^2 windows (1024 of 8x8, 2 heads of d = 32)
+        hw = (GRL_S_HW, GRL_S_HW)
+        geom = geometry_tensors(s_cfg.geometry_config, hw, dev)
+        bands_w = geom["bands_w"]
+        nw, n = bands_w.shape
+        bias_w = 16 * torch.sigmoid(rnd(heads, n, n))
+        # values (v, x1) at std 0.25 keep |y| < 1, where the bf16 gate's
+        # 1e-2 is a few ulps (q and k are unit-normed: their scale is moot)
+        qkv = rnd(1, nw, 3 * heads * d, n, std=0.25)
+        for sh in (0, 4):
+            cases_f.append(("fused_window_attention_qkv", f"GRL-S windows (8, 8) shift {sh}",
+                            window_qkv_case(ls, bias_w, bands_w if sh else None), qkv))
+        qw = rnd(1, nw, heads, n, d)
+        cases_f.append(("fused_cosine_attention_packed", "GRL-S windows (8, 8) shift 4, P 4",
+                        cosine_case(rnd(1, nw, heads, n, d), rnd(1, nw, heads, n, d, std=0.25),
+                                    ls, bias_w, dense_mask(bands_w, bands_w), pack=4), qw))
+        # B5: GRL-S 256^2 H stripes (8x64 at df 4: 512 tokens, 32 anchors)
+        stripe, shift = get_stripe_info(s_cfg.stripe_size, s_cfg.stripe_groups, True, hw)
+        bs, bsa = geom["bands_sh"], geom["bands_sh_a"]
+        (ns, n1), n2 = bs.shape, bsa.shape[1]
+        a_t, x1_t = rnd(1, ns, heads, d, n2), rnd(1, ns, heads, d, n2, std=0.25)
+        q_t, k_t, v_t = (rnd(1, ns, heads, d, n1, std=sd) for sd in (1.0, 1.0, 0.25))
+        b1, b2 = 16 * torch.sigmoid(rnd(heads, n2, n1)), 16 * torch.sigmoid(rnd(heads, n1, n2))
+        for shifted in (False, True):
+            sb, sba = (bs, bsa) if shifted else (None, None)
+            lab = f"GRL-S stripe {stripe} shift {shift if shifted else (0, 0)}"
+            cases_f.append(("flash_rect_attention", f"{lab} a2w",
+                            flash_case(a_t, k_t, v_t, ls, b1, sba, sb), a_t))
+            cases_f.append(("flash_rect_attention", f"{lab} w2a",
+                            flash_case(q_t, a_t, x1_t, ls, b2, sb, sba), q_t))
+        # B7a: GRL-S 128^2 stripes (8x32 and 32x8: 256 tokens, 16 anchors)
+        geom128 = geometry_tensors(s_cfg.geometry_config, (128, 128), dev)
+        for key in ("sh", "sv"):
+            bs, bsa = geom128[f"bands_{key}"], geom128[f"bands_{key}_a"]
+            (ns, n1), n2 = bs.shape, bsa.shape[1]
+            a_t, x1_t = rnd(1, ns, heads, n2, d), rnd(1, ns, heads, n2, d, std=0.25)
+            q_t, k_t, v_t = (rnd(1, ns, heads, n1, d, std=sd) for sd in (1.0, 1.0, 0.25))
+            b1, b2 = 16 * torch.sigmoid(rnd(heads, n2, n1)), 16 * torch.sigmoid(rnd(heads, n1, n2))
+            lab = f"GRL-S 128^2 stripes {key} shifted"
+            cases_f.append(("fused_cosine_attention", f"{lab} a2w",
+                            cosine_case(k_t, v_t, ls, b1, dense_mask(bsa, bs)), a_t))
+            cases_f.append(("fused_cosine_attention", f"{lab} w2a",
+                            cosine_case(a_t, x1_t, ls, b2, dense_mask(bs, bsa)), q_t))
+        # B5: GRL-base at its eval geometry, 256^2 (3 heads of d = 30)
+        ls3 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
+        gb = geometry_tensors(sr_cfg.geometry_config, (BASE_HW, BASE_HW), dev)
+        nw, n = gb["bands_w"].shape
+        qb = rnd(1, nw, 3, 30, n)
+        cases_f.append(("flash_rect_attention", "GRL-base window (32, 32) shift 16", flash_case(
+            qb, rnd(1, nw, 3, 30, n), rnd(1, nw, 3, 30, n, std=0.25), ls3,
+            16 * torch.sigmoid(rnd(3, n, n)), gb["bands_w"], gb["bands_w"]), qb))
+        bs, bsa = gb["bands_sh"], gb["bands_sh_a"]
+        (ns, n1), n2 = bs.shape, bsa.shape[1]
+        a_t, x1_t = rnd(1, ns, 3, 30, n2), rnd(1, ns, 3, 30, n2, std=0.25)
+        q_t, k_t, v_t = (rnd(1, ns, 3, 30, n1, std=sd) for sd in (1.0, 1.0, 0.25))
+        cases_f.append(("flash_rect_attention", "GRL-base stripe (64, 64) shifted a2w",
+                        flash_case(a_t, k_t, v_t, ls3, 16 * torch.sigmoid(rnd(3, n2, n1)),
+                                   bsa, bs), a_t))
+        cases_f.append(("flash_rect_attention", "GRL-base stripe (64, 64) shifted w2a",
+                        flash_case(q_t, a_t, x1_t, ls3, 16 * torch.sigmoid(rnd(3, n1, n2)),
+                                   bs, bsa), q_t))
+        run_cases(cases_f, max_err)
+
+    with Phase("GRL-S fused engine"):
+        fz = init_weights(GRL(replace(s_cfg, dtype=torch.bfloat16, engine="fused")),
+                          torch.Generator().manual_seed(3)).eval().to(dev)
+
+        def twin(m, **kw):
+            """A GRL of m's config with kw replaced, carrying m's weights."""
+            t = GRL(replace(m.cfg, **kw)).eval().to(dev)
+            t.load_state_dict(m.state_dict())
+            return t
+
+        fz_plain = twin(fz, kernels=False)
+        n_blocks = sum(s_cfg.depths)
+        runs = [("fused", 256, fz, fz_plain,
+                 expect(fused_window_attention_qkv=n_blocks, flash_rect_attention=2 * n_blocks)),
+                ("fused", 128, fz, fz_plain,
+                 expect(fused_window_attention_qkv=n_blocks,
+                        fused_cosine_attention=2 * n_blocks))]
+        for engine, want in (("window", expect(fused_window_attention_qkv=n_blocks)),
+                             ("stripe", expect(flash_rect_attention=2 * n_blocks))):
+            runs.append((engine, 256, twin(fz, engine=engine),
+                         twin(fz, engine=engine, kernels=False), want))
+        for engine, size, m, m_plain, want in runs:
+            lr = torch.rand(1, size, size, 3, generator=g).to(dev)
+            with torch.no_grad():
+                reset_counts()
+                y_k = m(lr)
+                torch.cuda.synchronize()
+                per_fwd, unrouted = counts(), ba.unrouted_halves
+                y_p = m_plain(lr)
+            p = psnr(y_k, y_p)
+            print(f"[model] GRL-S x4 bf16 {size}^2 engine {engine}: out {tuple(y_k.shape)}, "
+                  f"launches {per_fwd} per forward, unrouted halves {unrouted}, PSNR "
+                  f"kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
+            check(per_fwd == want and unrouted == 0,
+                  f"GRL-S engine {engine} {size}^2 launches {per_fwd}")
+            check(tuple(y_k.shape) == (1, 4 * size, 4 * size, 3)
+                  and bool(torch.isfinite(y_k).all()), f"engine {engine} output")
+            check(p >= MODEL_MIN_PSNR, f"engine {engine} {size}^2 PSNR < {MODEL_MIN_PSNR} dB")
+        del runs
+        m32, p32 = twin(fz, dtype=torch.float32), twin(fz, dtype=torch.float32, kernels=False)
+        lr = torch.rand(1, 64, 64, 3, generator=g).to(dev)
+        with torch.no_grad():
+            err32 = (m32(lr) - p32(lr)).abs().max().item()
+        print(f"[model] GRL-S x4 fp32 64^2 engine fused: max|diff| kernels vs plain "
+              f"{err32:.3e} (max {MODEL_FP32_MAX_ERR})")
+        check(err32 <= MODEL_FP32_MAX_ERR, "GRL-S fp32 engine fused kernels vs plain")
+        del m32, p32
+
+    with Phase("GRL-S fused serve"):
+        bucket = {"shape_bucket": 64}
+        requests = [
+            ("256x256", torch.rand(1, 256, 256, 3, generator=g), bucket),
+            ("120x128 (64-bucket)", torch.rand(1, 120, 128, 3, generator=g), bucket),
+            ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
+             {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
+        ]
+        reset_counts()
+        t0 = time.perf_counter()
+        outs = [Restorer(fz, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        got, unrouted = counts(), ba.unrouted_halves
+        served.update({k: got[k] for k in ("flash_rect_attention", "fused_window_attention_qkv",
+                                           "fused_cosine_attention",
+                                           "fused_cosine_attention_packed")})
+        print(f"[serve] GRL-S engine fused: 3 requests in {serve_s:.2f} s, launches {got}, "
+              f"unrouted halves {unrouted}")
+        for (label, img, kw), out in zip(requests, outs):
+            ref = Restorer(fz_plain, dev, scale=4, **kw)(img.numpy())
+            bsz, h_, w_, _ = img.shape
+            out = torch.from_numpy(out)
+            finite = bool(torch.isfinite(out).all())
+            p = psnr(out, torch.from_numpy(ref))
+            print(f"[serve] GRL-S engine fused {label}: out {tuple(out.shape)}, finite "
+                  f"{finite}, PSNR vs plain {p:.2f} dB")
+            check(tuple(out.shape) == (bsz, 4 * h_, 4 * w_, 3) and finite, label)
+            check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
+        # 256^2 and the 4 tiles of 384^2 (one batch) take B5 and B6, the
+        # 128^2 bucket of 120x128 B7a and B6
+        check(got == expect(fused_window_attention_qkv=3 * n_blocks,
+                            flash_rect_attention=2 * 2 * n_blocks,
+                            fused_cosine_attention=2 * n_blocks) and unrouted == 0,
+              f"GRL-S engine fused served launches {got}")
+
+    with Phase("GRL-base fused engine"):
+        bf = twin(base, engine="fused")
+        bf_plain = twin(base, engine="fused", kernels=False)
+        n_blocks = sum(sr_cfg.depths)
+        lr = torch.rand(1, BASE_MODEL_HW, BASE_MODEL_HW, 3, generator=g).to(dev)
+        with torch.no_grad():
+            reset_counts()
+            y_k = bf(lr)
+            torch.cuda.synchronize()
+            per_fwd, unrouted = counts(), ba.unrouted_halves
+            y_p = bf_plain(lr)
+        p = psnr(y_k, y_p)
+        print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 engine fused (window 32, stripes "
+              f"64x64, df 2): out {tuple(y_k.shape)}, launches {per_fwd} per forward, "
+              f"unrouted halves {unrouted}, PSNR kernels vs plain {p:.2f} dB, rel L2 "
+              f"{rel_l2(y_k, y_p):.3e}")
+        check(per_fwd == expect(flash_rect_attention=3 * n_blocks) and unrouted == 0,
+              f"GRL-base engine fused launches {per_fwd}")
+        check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
+              and bool(torch.isfinite(y_k).all()), "GRL-base engine fused output")
+        check(p >= MODEL_MIN_PSNR, f"GRL-base engine fused PSNR < {MODEL_MIN_PSNR} dB")
+
+    with Phase("repair: GRL-base dn 1080x1920 whole"):
+        # zoo GRL-base denoiser (window 8, stripes 8 x W/4, df 4) cut to one
+        # stage of four blocks; at 1088x1920 its H stripes (8, 480) fit no
+        # TPU route and run the plain cosine attention, its V stripes
+        # (272, 8) B4, its windows B1
+        rp_cfg = zoo.make_config("base", task="dn", depths=(4,), num_heads_window=(3,),
+                                 num_heads_stripe=(3,), dtype=torch.bfloat16)
+        rp = init_weights(GRL(rp_cfg), torch.Generator().manual_seed(4)).eval()
+        with torch.no_grad():
+            rp.conv_last.weight.mul_(0.1)
+            rp.conv_last.bias.mul_(0.1)
+        rp = rp.to(dev)
+        rp_plain = twin(rp, kernels=False)
+        frame = torch.rand(1, 1080, 1920, 3, generator=g)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = torch.from_numpy(Restorer(rp, dev, scale=1)(frame.numpy()))
+        rp_s = time.perf_counter() - t0
+        got, unrouted = counts(), ba.unrouted_halves
+        ref = torch.from_numpy(Restorer(rp_plain, dev, scale=1)(frame.numpy()))
+        finite = bool(torch.isfinite(out).all())
+        p = psnr(out, ref)
+        print(f"[repair] GRL-base dn 1080x1920 whole, 4 blocks, engine v3 bf16: out "
+              f"{tuple(out.shape)} in {rp_s:.2f} s, finite {finite}, launches {got}, "
+              f"unrouted halves {unrouted}, PSNR vs kernels=False {p:.2f} dB")
+        check(unrouted == 2 and got == expect(window_half=4, stripe_a2w_large=2,
+                                              stripe_w2a_large=2),
+              f"repair launches {got}, unrouted halves {unrouted}")
+        check(tuple(out.shape) == (1, 1080, 1920, 3) and finite, "repair output")
+        check(p >= MODEL_MIN_PSNR, "repair: PSNR vs kernels=False")
+        del rp, rp_plain, out, ref
+
+    with Phase("fused engines timing"):
+        # one shape a kernel for the per-kernel line (the shifted shapes of
+        # the served GRL-S requests; B7b at its window shapes); the others
+        # print only
+        keep = {"GRL-S windows (8, 8) shift 4", "GRL-S windows (8, 8) shift 4, P 4",
+                "GRL-S stripe (8, 64) shift (4, 32) w2a", "GRL-S 128^2 stripes sh shifted w2a"}
+        also = {"GRL-S stripe (8, 64) shift (4, 32) a2w", "GRL-S 128^2 stripes sh shifted a2w",
+                "GRL-base window (32, 32) shift 16", "GRL-base stripe (64, 64) shifted a2w",
+                "GRL-base stripe (64, 64) shifted w2a"}
+        for kname, label, case, xc in cases_f:
+            if label in keep | also:
+                time_case(kname, label, case, xc, 5, 2, timing if label in keep else {})
+        lr = torch.rand(1, GRL_S_HW, GRL_S_HW, 3, generator=g).to(dev)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: fz_plain(lr), lambda: fz(lr), 10, 3)
+        mp = GRL_S_HW * GRL_S_HW / 1e6
+        print(f"[time] GRL-S x4 {GRL_S_HW}^2 bs1 bf16 forward, engine fused: kernels "
+              f"{k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), plain {p_ms:.3f} ms "
+              f"({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
+        lr = torch.rand(1, BASE_HW, BASE_HW, 3, generator=g).to(dev)
+        with torch.no_grad():
+            k_ms, p_ms = ab_ms(lambda: bf_plain(lr), lambda: bf(lr), 3, 1)
+        mp = BASE_HW * BASE_HW / 1e6
+        print(f"[time] GRL-base x4 {BASE_HW}^2 bs1 bf16 forward, engine fused (window 32, "
+              f"stripes 64x64, df 2): kernels {k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), "
+              f"plain {p_ms:.3f} ms ({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

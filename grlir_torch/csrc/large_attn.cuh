@@ -1,5 +1,6 @@
 // Building blocks of the large-geometry block-half kernels (B3 in
-// window_half_large.cu, B4 in stripe_half_large.cu).
+// window_half_large.cu, B4 in stripe_half_large.cu); flash_attention.cu
+// (B5) runs the same attention kernel on operands projected beforehand.
 //
 // At GRL-base's eval geometry a window holds 1024 tokens and a stripe 4096
 // or 8192, so one attention no longer fits a block's 227 KB of shared
@@ -135,7 +136,8 @@ anchor_units_kernel(const T* __restrict__ anchor, T* __restrict__ an, int Ha, in
 // (Nq|Nk, d) rows in T, the given number of elements apart.  bias:
 // (heads, Nq, Nk).  band_q/band_k: (regions per image, Nq|Nk) shift-band
 // ids, or null.  out: NHWC (B, H, W, heads * d) at the tokens of (rh, rw)
-// regions when rw > 0 (rolled coordinates), else [g][head][Nq][d].
+// regions when rw > 0 (rolled coordinates), else [g][head][d][Nq] when
+// out_cm is set (channel-major, B5), else [g][head][Nq][d].
 struct AttnArgs {
   const void* q;
   const void* k;
@@ -147,7 +149,7 @@ struct AttnArgs {
   const int* band_q;
   const int* band_k;
   void* out;
-  int H, W, rh, rw;
+  int H, W, rh, rw, out_cm;
 };
 
 // y = softmax(q . k^T * scale + bias + mask) v for 32 query rows of one
@@ -273,7 +275,9 @@ attend_kernel(AttnArgs a) {
   __syncthreads();
   T* out = static_cast<T*>(a.out);
   for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-    const int rr = i / d, e = i % d, row = row0 + rr;
+    // neighbouring threads write neighbouring addresses in either layout
+    const int rr = a.out_cm ? i % kRows : i / d, e = a.out_cm ? i / kRows : i % d;
+    const int row = row0 + rr;
     if (row >= a.Nq) continue;
     float y = 0.f;
     for (int w = 0; w < kWarps; ++w) y += red[(w * kDP + e) * kRows + rr];
@@ -282,6 +286,8 @@ attend_kernel(AttnArgs a) {
     if (a.rw > 0) {
       const Regions reg{a.H, a.W, a.rh, a.rw, 0, 0};
       o = (size_t)reg.pixel(g, row) * (a.heads * d) + hh * d + e;
+    } else if (a.out_cm) {
+      o = ((size_t)gh * d + e) * a.Nq + row;
     } else {
       o = ((size_t)gh * a.Nq + row) * d + e;
     }

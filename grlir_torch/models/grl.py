@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from grlir_torch.models.blocks import (
+    ENGINE_HALVES,
     EfficientMixAttnTransformerBlock,
     conv_nhwc,
     layer_norm,
@@ -42,9 +43,26 @@ class GRLConfig:
     linear qkv, one-stage avgpool anchor, 1conv, img_range 1, 64 tail
     features, no drop path at inference).
 
+    engine: "v3" | "fused" | "window" | "stripe", the attention engine.
+    "v3" runs the whole block-half kernels (B1-B4) where a TPU route takes
+    the geometry and the plain cosine attention where none does; "fused"
+    runs the kernels on q, k, v projected beforehand on both halves (B6 or
+    B5 for windows, B7 or B5 for stripes); "window" and "stripe" run them
+    on that half only and the plain cosine attention on the other.
     kernels: "auto" | True | False.  "auto" runs the CUDA attention kernels
     for CUDA inputs at inference (grad mode off, or the module in eval mode)
-    and the plain PyTorch versions otherwise.
+    and the plain PyTorch versions otherwise; False runs the plain version
+    of each of the engine's kernels.
+
+    The JAX package's `use_pallas_attention` maps so:
+
+      use_pallas_attention   port
+      "auto"                 engine "v3", kernels "auto"
+      "v3"                   engine "v3", kernels True
+      True                   engine "fused"
+      "window"               engine "window"
+      "stripe"               engine "stripe"
+      False                  kernels False
     """
 
     in_channels: int = 3
@@ -62,6 +80,7 @@ class GRLConfig:
     mlp_ratio: float = 4.0
     anchor_window_down_factor: int = 1
     local_connection: bool = False
+    engine: str = "v3"
     kernels: object = "auto"
     dtype: torch.dtype = torch.float32
 
@@ -91,6 +110,9 @@ def check_ported(cfg: GRLConfig) -> None:
             "ported yet (ROADMAP A10)")
     if cfg.kernels not in ("auto", True, False):
         raise ValueError(f"kernels must be 'auto', True or False: {cfg.kernels!r}")
+    if cfg.engine not in ENGINE_HALVES:
+        raise ValueError(f"engine must be one of {sorted(ENGINE_HALVES)}: "
+                         f"{cfg.engine!r}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -132,7 +154,8 @@ class TransformerStage(nn.Module):
                 stripe_type="H" if i % 2 == 0 else "W",
                 stripe_shift=(i % 4 in (2, 3)) if cfg.stripe_shift else False,
                 mlp_ratio=cfg.mlp_ratio, df=cfg.anchor_window_down_factor,
-                local_connection=cfg.local_connection, device=device)
+                local_connection=cfg.local_connection, engine=cfg.engine,
+                device=device)
             for i in range(depth)])
         self.conv = _conv(cfg.embed_dim, cfg.embed_dim, device=device)
 

@@ -14,7 +14,9 @@ hand-written in CUDA with a plain PyTorch version beside it:
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
 version on any device.  A geometry that no TPU kernel takes raises
-NotImplementedError either way.  The kernels have no backward yet, so with
+NotImplementedError either way: the model routes such a half to its plain
+cosine attention (`grlir_torch.models.blocks`) before it gets here, and
+counts it in `unrouted_halves`.  The kernels have no backward yet, so with
 `kernels=True` an input that requires grad under grad mode raises.
 
 Every version pins the numerics of its TPU kernel: q, k and anchors are
@@ -120,8 +122,9 @@ def _scale(logit_scale: torch.Tensor) -> torch.Tensor:
     return torch.exp(s).reshape(-1)
 
 
-def _unit(t: torch.Tensor) -> torch.Tensor:
-    return t * torch.rsqrt(torch.clamp((t * t).sum(-1, keepdim=True),
+def _unit(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """t * rsqrt(max(sum t^2, 1e-24)) over `dim`: the kernels' unit norm."""
+    return t * torch.rsqrt(torch.clamp((t * t).sum(dim, keepdim=True),
                                        min=1e-24))
 
 
@@ -616,8 +619,15 @@ stripe_w2a_large.launches = 0
 KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
            stripe_w2a_large)
 
+# block halves whose geometry no route takes (window_route/stripe_route
+# None) and that the model ran on its plain cosine attention instead, as
+# the JAX package runs its XLA path there (grlir/models/blocks.py:557-562)
+unrouted_halves = 0
+
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and unrouted_halves, to 0."""
+    global unrouted_halves
     for k in KERNELS:
         k.launches = 0
+    unrouted_halves = 0

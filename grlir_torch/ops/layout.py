@@ -34,6 +34,24 @@ def window_reverse(x: torch.Tensor, window_size: Size2,
     return x.reshape(B, H, W, C)
 
 
+def window_partition_cm(x: torch.Tensor, window_size: Size2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, nWin, C, wh*ww): windows, channel-major."""
+    B, H, W, C = x.shape
+    wh, ww = window_size
+    x = x.reshape(B, H // wh, wh, W // ww, ww, C).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(B, (H // wh) * (W // ww), C, wh * ww)
+
+
+def window_reverse_cm(x: torch.Tensor, window_size: Size2,
+                      x_size: Size2) -> torch.Tensor:
+    """(B, nWin, C, wh*ww) -> (B, H, W, C): inverse of window_partition_cm."""
+    H, W = x_size
+    wh, ww = window_size
+    B, _, C, _ = x.shape
+    x = x.reshape(B, H // wh, W // ww, C, wh, ww).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H, W, C)
+
+
 def nearest_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
     """NHWC nearest-neighbour upsampling (F.interpolate mode='nearest')."""
     return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)

@@ -4,10 +4,16 @@ reference torch checkpoint.
     python -m grlir_torch.serve --input lr_dir --output out_dir \
         --checkpoint sr_grl_small_c3x4.ckpt --model small --task sr --scale 4 \
         [--tile 640 --tile-overlap 32] [--shape-bucket 64] [--dtype bfloat16] \
-        [--kernels auto|on|off] [--device cuda]
+        [--engine v3|fused|window|stripe] [--kernels auto|on|off] [--device cuda]
 
 Loads reference .ckpt/.pth files (Lightning `model.`/`model_g.` prefixes or
 a raw state_dict) with strict key matching.
+
+`--engine` picks the attention engine (`GRLConfig.engine`) and `--kernels`
+whether its CUDA kernels run.  The JAX CLI's `--pallas` choices map so:
+auto -> --engine v3 --kernels auto; v3 -> --engine v3 --kernels on;
+on -> --engine fused; window -> --engine window; stripe -> --engine stripe;
+off -> --kernels off.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from grlir_torch.engines.inference import Restorer, reflect_pad_to
 from grlir_torch.models import zoo
+from grlir_torch.models.blocks import ENGINE_HALVES
 from grlir_torch.models.grl import GRL
 from grlir_torch.utils.convert import strip_prefix
 
@@ -68,6 +75,10 @@ def main(argv=None):
                     help="restore up to N same-bucket images per call "
                          "(whole-image mode)")
     ap.add_argument("--dtype", default="float32", choices=list(DTYPES))
+    ap.add_argument("--engine", default="v3", choices=list(ENGINE_HALVES),
+                    help="attention engine: v3 = whole block-half kernels, "
+                         "fused = kernels on projected q/k/v on both halves, "
+                         "window/stripe = on that half only")
     ap.add_argument("--kernels", default="auto", choices=list(KERNELS),
                     help="CUDA attention kernels (auto = on for CUDA "
                          "inference; off = plain PyTorch attention)")
@@ -77,7 +88,7 @@ def main(argv=None):
     import cv2
 
     cfg = zoo.make_config(args.model, task=args.task, upscale=args.scale,
-                          dtype=DTYPES[args.dtype],
+                          dtype=DTYPES[args.dtype], engine=args.engine,
                           kernels=KERNELS[args.kernels])
     model = GRL(cfg)
     load_checkpoint(model, args.checkpoint)

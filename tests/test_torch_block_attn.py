@@ -3,6 +3,7 @@ kernels they port (interpret mode), and the dispatch rules of the wrappers.
 The CUDA kernels themselves are tested in test_torch_cuda_kernels.py."""
 
 import math
+from dataclasses import replace
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,10 @@ import pytest
 import torch
 
 from grlir.ops.pallas import block_attn as jba
+from grlir_torch.models.grl import GRL
 from grlir_torch.ops import block_attn as tba
+from grlir_torch.utils.convert import jax_params_to_state_dict
+from torch_parity import model_pair
 
 # the sizes of tests/test_block_attn.py
 B, H, W, C = 2, 32, 32, 64
@@ -158,11 +162,34 @@ def test_stripe_guard_restates_pallas(size, stripe, df, heads):
                     == jba._stripe_large_tiles(stripe, df, heads))
 
 
-def test_unrouted_geometries_raise(data):
-    """A geometry that no TPU kernel takes raises on either path; nothing
-    falls back."""
+def test_unrouted_geometries_raise(data, monkeypatch):
+    """A geometry that no TPU kernel takes (here every half of TRUNK at
+    32x32, once the TPU's budgets are cut in both packages) runs the plain
+    cosine attention in engine v3, as grlir runs its XLA path there
+    (grlir/models/blocks.py:557-562,717-721): the port with kernels on
+    (CPU) and off equals grlir's v3 (interpret) and False, and counts every
+    half in unrouted_halves.  The kernel wrappers themselves still raise on
+    such a geometry, as on one that is not a multiple of the window."""
+    for mod in (jba, tba):
+        monkeypatch.setattr(mod, "_BIAS_VMEM_BUDGET", 1000)
+        monkeypatch.setattr(mod, "_STRIPE_ATTN_BUDGET", 1000)
+    assert tba.window_route((32, 32), (8, 8), 2) is None
+    assert tba.stripe_route((32, 32), (8, 8), 4, 2) is None
+    x = np.random.default_rng(21).random((1, 32, 32, 3)).astype(np.float32)
+    for kernels, jax_mode in ((True, "v3"), (False, False)):
+        jmodel, params, tmodel, _ = model_pair("pixelshuffle", 2, 4, jax_mode)
+        tmodel = GRL(replace(tmodel.cfg, kernels=kernels)).eval()
+        tmodel.load_state_dict(jax_params_to_state_dict(params))
+        want = np.asarray(jmodel.apply(params, jnp.asarray(x)))
+        tba.reset_launches()
+        with torch.no_grad():
+            got = tmodel(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-4)
+        assert tba.unrouted_halves == 2 * 4      # both halves of 4 blocks
     args, _ = _window_args(data, False)
     x, *rest = map(_t, args)
+    with pytest.raises(NotImplementedError, match="no TPU window kernel"):
+        tba.window_half(x, *rest, WIN)
     for kernels in (True, False):
         with pytest.raises(NotImplementedError, match="no TPU window kernel"):
             tba.window_half(x[:, :20], *rest, WIN, kernels=kernels)

@@ -11,7 +11,11 @@ GRL-S's: small and large windows, ragged stripe tiles (N1 not a multiple of
 three heads of d = 30 on every route: the small-window (B1) and
 resident-stripe (B2) kernels at its deployed window 8 / df 4, the
 large-window (B3) and streamed-bias stripe (B4) kernels at its eval
-geometry (window 32, stripes 64x64 and 64x128, df 2).
+geometry (window 32, stripes 64x64 and 64x128, df 2).  The fused engines'
+kernels run at GRL-S's and GRL-base's shapes and at ragged ones: B5
+(`flash_rect_attention`), B6 (`fused_window_attention_qkv`), B7a
+(`fused_cosine_attention`, token-major and d-major operands) and B7b
+(`fused_cosine_attention_packed`, the same function as B7a).
 """
 
 import math
@@ -20,7 +24,9 @@ import numpy as np
 import pytest
 import torch
 
+from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as tba
+from grlir_torch.ops import flash_attention as tfa
 
 B, C, CW, HEADS, DF = 2, 64, 32, 2, 4
 BF16_MAX_ERR = 1e-2   # outputs |y| < 1: a few bf16 ulps
@@ -213,3 +219,137 @@ def test_kernels_refuse_large_geometries(cuda):
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
         tba.window_half(x[:, :64, :64], w1, None, ls1,
                         torch.zeros((1, 1024, 1024), device=cuda), (32, 32))
+
+
+# ------------------------------------------------- fused engines (B5-B7)
+
+def _scales(h, dev):
+    return torch.tensor([math.log(10.0), 5.0, 3.0][:h]).reshape(h, 1, 1).to(dev)
+
+
+def _launched(fn, call):
+    """Run call() under no_grad; assert it launched fn once; return y."""
+    before = fn.launches
+    with torch.no_grad():
+        y = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return y
+
+
+# (B, nW, h, d, N1, N2): GRL-S's 8x64 stripes at 256^2 (w2a, a2w),
+# GRL-base's window 32 and its 64x64-stripe a2w step at df 2, and a ragged
+# shape (N1 not a multiple of 32, N2 not a multiple of 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,with_bands", [
+    ((2, 4, 2, 32, 512, 32), True), ((2, 4, 2, 32, 32, 512), True),
+    ((1, 2, 3, 30, 1024, 1024), True), ((1, 2, 3, 30, 1024, 4096), False),
+    ((1, 3, 2, 16, 100, 70), True)])
+def test_flash_kernel_matches_plain(cuda, dtype, shape, with_bands):
+    B, nW, h, d, N1, N2 = shape
+    rng = np.random.default_rng(8)
+    # values at std 0.25 keep |y| < 1, where BF16_MAX_ERR is a few ulps
+    q, k, v = (_rand(rng, B, nW, h, d, n, std=sd).to(cuda, dtype)
+               for n, sd in ((N1, 1.0), (N2, 1.0), (N2, 0.25)))
+    bias = 16 * torch.sigmoid(_rand(rng, h, N1, N2)).to(cuda)
+    bands = [_bands(rng, nW, n, cuda) if with_bands else None for n in (N1, N2)]
+    args = (q, k, v, _scales(h, cuda), bias, *bands)
+    got = _launched(tfa.flash_rect_attention, lambda: tfa.flash_rect_attention(*args))
+    with torch.no_grad():
+        want = tfa.flash_rect_attention(*args, kernels=False)
+    _assert_close(got, want, dtype)
+
+
+# (N, heads, d): GRL-S's windows (8x8, 2 heads of 32), 16x16 windows at
+# GRL-base's heads, and ragged window sizes
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,heads,d", [(64, 2, 32), (256, 3, 30), (36, 2, 16),
+                                       (144, 3, 10)])
+@pytest.mark.parametrize("with_bands", [False, True])
+def test_window_qkv_kernel_matches_plain(cuda, dtype, N, heads, d, with_bands):
+    rng = np.random.default_rng(9)
+    nW = 5
+    qkv = _rand(rng, 2, nW, 3 * heads * d, N, std=0.25).to(cuda, dtype)
+    bias = 16 * torch.sigmoid(_rand(rng, heads, N, N)).to(cuda)
+    bands = _bands(rng, nW, N, cuda) if with_bands else None
+    args = (qkv, _scales(heads, cuda), bias, heads, bands)
+    got = _launched(tatt.fused_window_attention_qkv,
+                    lambda: tatt.fused_window_attention_qkv(*args))
+    with torch.no_grad():
+        want = tatt.fused_window_attention_qkv(*args, kernels=False)
+    _assert_close(got, want, dtype)
+
+
+def _split(rng, shape, with_mask, dev, dtype):
+    B, nW, h, N1, N2, d = shape
+    q, k, v = (_rand(rng, B, nW, h, n, d, std=sd).to(dev, dtype)
+               for n, sd in ((N1, 1.0), (N2, 1.0), (N2, 0.25)))
+    mask = None
+    if with_mask:
+        mask = torch.where(torch.from_numpy(rng.random((nW, N1, N2))) > 0.8,
+                           -100.0, 0.0).to(dev, dtype)
+    bias = 16 * torch.sigmoid(_rand(rng, h, N1, N2)).to(dev)
+    return q, k, v, _scales(h, dev), bias, mask
+
+
+# (B, nW, h, N1, N2, d): GRL-S's 8x32 stripes at 128^2 (a2w, w2a), a ragged
+# shape at GRL-base's heads, and the most keys the kernel holds
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 2, 16, 256, 32), (1, 8, 2, 256, 16, 32),
+                                   (2, 3, 3, 100, 37, 30), (1, 2, 2, 600, 600, 8)])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_cosine_kernel_matches_plain(cuda, dtype, shape, with_mask):
+    args = _split(np.random.default_rng(10), shape, with_mask, cuda, dtype)
+    got = _launched(tatt.fused_cosine_attention,
+                    lambda: tatt.fused_cosine_attention(*args))
+    with torch.no_grad():
+        want = tatt.fused_cosine_attention(*args, kernels=False)
+    _assert_close(got, want, dtype)
+    # d-major views in, as the stripe engine passes them: same values, and
+    # y comes back as a d-major view
+    dm = [t.transpose(-1, -2).contiguous().transpose(-1, -2) for t in args[:3]]
+    y = _launched(tatt.fused_cosine_attention,
+                  lambda: tatt.fused_cosine_attention(*dm, *args[3:]))
+    assert y.stride(-2) == 1
+    assert torch.equal(y, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_packed_kernel_matches_plain(cuda, dtype, pack, with_mask):
+    """B7b at GRL-S's window shapes against its block-diagonally packed
+    plain version, and equal to B7a's kernel."""
+    args = _split(np.random.default_rng(11), (1, 16, 2, 64, 64, 32), with_mask,
+                  cuda, dtype)
+    got = _launched(tatt.fused_cosine_attention_packed,
+                    lambda: tatt.fused_cosine_attention_packed(*args, pack=pack))
+    with torch.no_grad():
+        want = tatt.fused_cosine_attention_packed(*args, pack=pack, kernels=False)
+        split = tatt.fused_cosine_attention(*args)
+    _assert_close(got, want, dtype)
+    assert torch.equal(got, split)
+
+
+@pytest.mark.cuda
+def test_fused_kernels_refuse_beyond_their_limits(cuda):
+    """Head dims beyond 32 and more keys than a block's shared memory holds
+    raise NotImplementedError before any launch."""
+    z = lambda *s: torch.zeros(s, device=cuda)   # noqa: E731
+    ls = z(1, 1, 1)
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="head dim"):
+            tfa.flash_rect_attention(z(1, 1, 1, 64, 32), z(1, 1, 1, 64, 32),
+                                     z(1, 1, 1, 64, 32), ls, z(1, 32, 32))
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            tatt.fused_cosine_attention(z(1, 1, 1, 16, 8), z(1, 1, 1, 700, 8),
+                                        z(1, 1, 1, 700, 8), ls, z(1, 16, 700))
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            tatt.fused_cosine_attention(z(1, 1, 1, 16, 40), z(1, 1, 1, 16, 40),
+                                        z(1, 1, 1, 16, 40), ls, z(1, 16, 16))
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            tatt.fused_window_attention_qkv(z(1, 1, 96, 1024), ls, z(1, 1024, 1024), 1)

@@ -26,6 +26,20 @@ def test_window_partition_and_reverse(window):
     np.testing.assert_array_equal(back.numpy(), x)
 
 
+@pytest.mark.parametrize("window", [(8, 8), (4, 16), (16, 4)])
+def test_window_partition_and_reverse_cm(window):
+    """The channel-major pair the fused attention engines read and write."""
+    x = _x((2, 16, 32, 5), seed=1)
+    want = np.asarray(jl.window_partition_cm(jnp.asarray(x), window))
+    got = tl.window_partition_cm(torch.from_numpy(x), window)
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = tl.window_reverse_cm(got, window, (16, 32))
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jl.window_reverse_cm(jnp.asarray(want), window,
+                                                      (16, 32))))
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
 @pytest.mark.parametrize("scale", [2, 3])
 def test_nearest_upsample(scale):
     x = _x((1, 5, 7, 3))

@@ -77,3 +77,29 @@ def test_serve_cli_writes_pngs(tmp_path):
         rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
         want = serve.to_uint8(restorer(rgb[None])[0])
         np.testing.assert_array_equal(cv2.cvtColor(out, cv2.COLOR_BGR2RGB), want)
+
+
+def test_serve_cli_engine_fused_writes_pngs(tmp_path):
+    """--engine fused serves a folder on the CPU (the plain versions of
+    B5-B7) and writes what the fused GRL restores."""
+    cv2 = pytest.importorskip("cv2")
+    model = init_weights(GRL(zoo.make_config("tiny", upscale=2)),
+                         torch.Generator().manual_seed(1)).eval()
+    ckpt = tmp_path / "grl_tiny_x2.ckpt"
+    torch.save(model.state_dict(), ckpt)
+    src, dst = tmp_path / "lr", tmp_path / "sr"
+    src.mkdir()
+    im = np.random.default_rng(3).integers(0, 256, (24, 40, 3), np.uint8)
+    cv2.imwrite(str(src / "c.png"), im)
+
+    serve.main(["--input", str(src), "--output", str(dst), "--checkpoint",
+                str(ckpt), "--model", "tiny", "--scale", "2", "--device", "cpu",
+                "--engine", "fused", "--shape-bucket", "16"])
+
+    fused = GRL(zoo.make_config("tiny", upscale=2, engine="fused")).eval()
+    fused.load_state_dict(model.state_dict())
+    rgb = cv2.cvtColor(im, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+    want = serve.to_uint8(Restorer(fused, "cpu", scale=2, shape_bucket=16)(rgb[None])[0])
+    out = cv2.imread(str(dst / "c.png"))
+    assert out.shape == (48, 80, 3)
+    np.testing.assert_array_equal(cv2.cvtColor(out, cv2.COLOR_BGR2RGB), want)

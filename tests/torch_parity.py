@@ -11,7 +11,25 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from grlir.models.grl import GRL as JGRL
+from grlir.models.grl import GRLConfig as JConfig
 from grlir.models.grl import _inflate_mask
+from grlir_torch.models.grl import GRL, GRLConfig
+from grlir_torch.utils.convert import jax_params_to_state_dict
+
+# GRL-S's trunk at embed 32 and depths (2, 2)
+TRUNK = dict(embed_dim=32, depths=(2, 2), num_heads_window=(2, 2),
+             num_heads_stripe=(2, 2), window_size=8, stripe_size=(8, None),
+             stripe_groups=(None, 4), stripe_shift=True, mlp_ratio=2.0,
+             anchor_window_down_factor=4)
+
+# GRL-base's trunk (CAB on every block) at its eval geometry (window 32,
+# fixed 64x64 stripes, anchor df 2), cut to embed 36 (3 + 3 heads of d = 6)
+# and one stage of four blocks, so every schedule position runs once
+BASE_TRUNK = dict(embed_dim=36, depths=(4,), num_heads_window=(3,),
+                  num_heads_stripe=(3,), window_size=32, stripe_size=(64, 64),
+                  stripe_groups=(None, None), stripe_shift=True, mlp_ratio=2.0,
+                  anchor_window_down_factor=2, local_connection=True)
 
 
 def random_params(module, rng, *inputs):
@@ -59,3 +77,19 @@ def jax_geometry(gcfg, x_size, compute_dtype=jnp.float32):
         g[f"mask_{s}_w2a"] = _inflate_mask(b, ba, compute_dtype)
         g[f"bands_{s}"], g[f"bands_{s}_a"] = b, ba
     return g
+
+
+def model_pair(upsampler, upscale, seed, jax_kernels=False, trunk=TRUNK,
+               engine="v3"):
+    """grlir's GRL with use_pallas_attention=jax_kernels and the port's GRL
+    with `engine`, both of `trunk` and the same random parameters; also the
+    parameters and the numpy Generator that drew them."""
+    rng = np.random.default_rng(seed)
+    jcfg = JConfig(**trunk, upsampler=upsampler, upscale=upscale,
+                   drop_path_rate=0.0, use_pallas_attention=jax_kernels)
+    jmodel = JGRL(jcfg)
+    params = random_params(jmodel, rng, jnp.zeros((1, 32, 32, 3), jnp.float32))
+    tmodel = GRL(GRLConfig(**trunk, upsampler=upsampler, upscale=upscale,
+                           engine=engine)).eval()
+    tmodel.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return jmodel, params, tmodel, rng
