@@ -22,7 +22,12 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      two SR requests and one tiled denoising request (its main path, counts
      reset just before), each against the plain path; timing of each kernel
      against its plain version and the nearest PyTorch library composition,
-     the x4 forward in LR megapixels a second, and the denoising tile;
+     the x4 forward in LR megapixels a second, and the denoising tile.
+     Since slice 4 B4's bf16 steps run on tensor cores: every B4 launch is
+     counted by route (tensor cores for bf16, CUDA cores for fp32) and the
+     model, serve and repair phases check that the bf16 ones took the
+     tensor-core route; B4's bf16 gate is max(1e-2, 2 bf16 ulps of
+     max|plain|), printed beside the plain path's own spread;
   5. the fused engines (slice 3: B5 `flash_rect_attention`, B6
      `fused_window_attention_qkv`, B7a `fused_cosine_attention`, B7b
      `fused_cosine_attention_packed`): each kernel vs its plain version at
@@ -56,6 +61,14 @@ GRL_S_HW = 256
 BASE_HW = 256              # GRL-base x4 LR timing size (an eval tile)
 BASE_MODEL_HW = 128        # GRL-base x4 bf16 kernels-vs-plain check
 BF16_MAX_ERR = 1e-2        # bf16 outputs: a few ulps at |y| < 1
+# B4's bf16 gate, max(BF16_MAX_ERR, 2 bf16 ulps of max|plain|): its
+# tensor-core sums of the projection round k, q and v to bf16 in another
+# order than the plain path, and the clamped head's logit scale of 100 turns
+# a one-ulp flip of k or q into about a percent of a probability, so y moves
+# by a fraction of the values it averages.  Beside it the plain path's own
+# spread is printed: the plain path against itself with its projection
+# summed in float64.
+ULP_GATED = ("stripe_a2w_large", "stripe_w2a_large")
 FP32_TOL = 1e-4            # fp32: summation order only
 MODEL_FP32_MAX_ERR = 5e-4  # whole-model fp32 rounding-order drift
 MODEL_MIN_PSNR = 60.0      # bf16 whole model, kernels vs plain
@@ -138,7 +151,10 @@ def bound_ms(n_bytes: float, flops: float, dtype):
 
 KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
                 "anchor_units_kernel", "attend_kernel", "tokens_major_kernel",
-                "cosine_attention_kernel")
+                "cosine_attention_kernel", "mma_attend_kernel", "mma_project_kernel",
+                "pad_rows_kernel")
+# kernels of B4's tensor-core route: bf16 only, not templated on the type
+BF16_KINDS = ("mma_attend_kernel", "mma_project_kernel", "pad_rows_kernel")
 
 
 def ptxas_report(log: str):
@@ -152,13 +168,19 @@ def ptxas_report(log: str):
             fn = line.split("for ")[-1]
             kind = max((k for k in KERNEL_KINDS if k in fn), key=len, default=fn)
             first = fn[fn.find(kind) + len(kind):] if kind in fn else ""
-            name = f"{src}:{kind}<{'bf16' if first.startswith('I13__nv_bfloat16') else 'fp32'}>"
+            bf16 = first.startswith("I13__nv_bfloat16") or kind in BF16_KINDS
+            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "registers" in line and name:
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
             name = None
     return lines
+
+
+def bf16_ulp(v: float) -> float:
+    """The bf16 ulp at |v| (8 significant bits)."""
+    return 2.0 ** (math.frexp(abs(v))[1] - 8)
 
 
 def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -360,6 +382,23 @@ def main() -> int:
 
         return fn, lib, cost
 
+    def fp64_projection_spread(fn, xt, want):
+        """max|diff| between the plain path and itself with its projection
+        summed in float64: how far two faithful orders of the same sums
+        land apart."""
+        plain_project = ba._project
+
+        def project64(t, wqkv, bqkv, h, mm, parts):
+            p = (t.double() @ wqkv.to(mm).double()).float()
+            return ba._split_heads(p if bqkv is None else p + bqkv.float(), parts, h)
+
+        ba._project = project64
+        try:
+            other = fn(xt, False)
+        finally:
+            ba._project = plain_project
+        return (other.float() - want.float()).abs().max().item()
+
     def run_cases(cases, max_err):
         """Each case's kernel against its plain version, fp32 and bf16."""
         with torch.no_grad():
@@ -373,6 +412,13 @@ def main() -> int:
                     if dtype == torch.float32:
                         ok = torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
                         tol = f"atol {FP32_TOL} rtol {FP32_TOL}"
+                    elif kname in ULP_GATED:
+                        top = want.float().abs().max().item()
+                        gate = max(BF16_MAX_ERR, 2 * bf16_ulp(top))
+                        ok = err <= gate
+                        tol = (f"max {gate:.3e} = max({BF16_MAX_ERR}, 2 bf16 ulps of max|plain| "
+                               f"{top:.3f}); plain vs plain with float64 projection sums "
+                               f"{fp64_projection_spread(fn, xt, want):.3e}")
                     else:
                         ok, tol = err <= BF16_MAX_ERR, f"max {BF16_MAX_ERR}"
                     print(f"[kernel] {kname} {label} {str(dtype)[6:]}: "
@@ -401,10 +447,21 @@ def main() -> int:
         return {k.__name__: launched.get(k.__name__, 0) for k in all_kernels}
 
     def reset_counts():
-        """Every launch count and block_attn.unrouted_halves to 0."""
+        """Every launch count, B4's counts by route and
+        block_attn.unrouted_halves to 0."""
         ba.reset_launches()
         for k in all_kernels:
             k.launches = 0
+
+    b4_steps = (ba.stripe_a2w_large, ba.stripe_w2a_large)
+
+    def routes():
+        """B4's launches by route (bf16 on tensor cores, fp32 on CUDA cores)."""
+        return {k.__name__: dict(k.route_launches) for k in b4_steps}
+
+    def expect_routes(tensor_core=0, cuda_core=0):
+        return {k.__name__: {"tensor_core": tensor_core, "cuda_core": cuda_core}
+                for k in b4_steps}
 
     max_err, timing, served = {}, {}, {}
 
@@ -585,19 +642,22 @@ def main() -> int:
             y_k = base(lr)
             torch.cuda.synchronize()
             mem["kernels"] = torch.cuda.max_memory_allocated() / 2**30
-            per_fwd = counts()
+            per_fwd, per_route = counts(), routes()
             torch.cuda.reset_peak_memory_stats()
             y_p = base_plain(lr)
             torch.cuda.synchronize()
             mem["plain"] = torch.cuda.max_memory_allocated() / 2**30
         p = psnr(y_k, y_p)
         print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 (window 32, stripes 64x64, df 2): "
-              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, PSNR kernels vs "
-              f"plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, max_memory_allocated "
-              f"kernels {mem['kernels']:.2f} GiB, plain {mem['plain']:.2f} GiB")
+              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, B4 by route "
+              f"{per_route}, PSNR kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, "
+              f"max_memory_allocated kernels {mem['kernels']:.2f} GiB, plain "
+              f"{mem['plain']:.2f} GiB")
         check(per_fwd == expect(window_half_large=n_blocks, stripe_a2w_large=n_blocks,
                                 stripe_w2a_large=n_blocks) and ba.unrouted_halves == 0,
               f"GRL-base launches {per_fwd}, unrouted halves {ba.unrouted_halves}")
+        check(per_route == expect_routes(tensor_core=n_blocks),
+              f"GRL-base bf16 B4 routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
               and bool(torch.isfinite(y_k).all()), "GRL-base bf16 output")
         check(p >= MODEL_MIN_PSNR, f"GRL-base bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -606,10 +666,14 @@ def main() -> int:
         m32.load_state_dict(base.state_dict())
         p32.load_state_dict(base.state_dict())
         with torch.no_grad():
+            reset_counts()
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
+            per_route = routes()
         print(f"[model] GRL-base x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-              f"(max {MODEL_FP32_MAX_ERR})")
+              f"(max {MODEL_FP32_MAX_ERR}), B4 by route {per_route}")
         check(err32 <= MODEL_FP32_MAX_ERR, "GRL-base fp32 kernels vs plain")
+        check(per_route == expect_routes(cuda_core=n_blocks),
+              f"GRL-base fp32 B4 routes {per_route}")
         del m32, p32
 
     with Phase("GRL-base serve"):
@@ -640,11 +704,11 @@ def main() -> int:
                 for _, m, _, sc, img, kw in requests]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        got, unrouted = counts(), ba.unrouted_halves
+        got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
         served.update({k: got[k] for k in ("window_half_large", "stripe_a2w_large",
                                            "stripe_w2a_large")})
-        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, unrouted "
-              f"halves {unrouted}")
+        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, B4 by route "
+              f"{got_routes}, unrouted halves {unrouted}")
         for (label, _, m_plain, sc, img, kw), out in zip(requests, outs):
             ref = Restorer(m_plain, dev, scale=sc, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -660,6 +724,8 @@ def main() -> int:
                             stripe_a2w_large=forwards * n_blocks,
                             stripe_w2a_large=forwards * n_blocks) and unrouted == 0,
               f"GRL-base served launches {got} != {forwards} forwards x {n_blocks}")
+        check(got_routes == expect_routes(tensor_core=forwards * n_blocks),
+              f"GRL-base served B4 routes {got_routes}")
         d32 = GRL(dn_cfg).eval().to(dev)
         q32 = GRL(replace(dn_cfg, kernels=False)).eval().to(dev)
         d32.load_state_dict(dn.state_dict())
@@ -974,16 +1040,18 @@ def main() -> int:
         t0 = time.perf_counter()
         out = torch.from_numpy(Restorer(rp, dev, scale=1)(frame.numpy()))
         rp_s = time.perf_counter() - t0
-        got, unrouted = counts(), ba.unrouted_halves
+        got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
         ref = torch.from_numpy(Restorer(rp_plain, dev, scale=1)(frame.numpy()))
         finite = bool(torch.isfinite(out).all())
         p = psnr(out, ref)
         print(f"[repair] GRL-base dn 1080x1920 whole, 4 blocks, engine v3 bf16: out "
               f"{tuple(out.shape)} in {rp_s:.2f} s, finite {finite}, launches {got}, "
-              f"unrouted halves {unrouted}, PSNR vs kernels=False {p:.2f} dB")
+              f"B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
+              f"kernels=False {p:.2f} dB")
         check(unrouted == 2 and got == expect(window_half=4, stripe_a2w_large=2,
                                               stripe_w2a_large=2),
               f"repair launches {got}, unrouted halves {unrouted}")
+        check(got_routes == expect_routes(tensor_core=2), f"repair B4 routes {got_routes}")
         check(tuple(out.shape) == (1, 1080, 1920, 3) and finite, "repair output")
         check(p >= MODEL_MIN_PSNR, "repair: PSNR vs kernels=False")
         del rp, rp_plain, out, ref

@@ -1,6 +1,7 @@
 // Building blocks of the large-geometry block-half kernels (B3 in
-// window_half_large.cu, B4 in stripe_half_large.cu); flash_attention.cu
-// (B5) runs the same attention kernel on operands projected beforehand.
+// window_half_large.cu, B4's fp32 route in stripe_half_large.cu, whose bf16
+// route runs on tensor cores, stripe_attn_mma.cuh); flash_attention.cu (B5)
+// runs the same attention kernel on operands projected beforehand.
 //
 // At GRL-base's eval geometry a window holds 1024 tokens and a stripe 4096
 // or 8192, so one attention no longer fits a block's 227 KB of shared
@@ -115,20 +116,22 @@ project_regions_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // an[g][head][a][e] = anchor token a of region g (anchor regions (ah, aw)
 // tile the (Ha, Wa) anchor map, which the caller has rolled), unit-normed
-// and rounded to T.  One warp per token, one lane per channel (d <= 32).
-// Grid (regions * B, heads).
+// and rounded to T, in rows of ld >= d elements (zeros past d).  One warp
+// per token, one lane per channel (d, ld <= 32).  Grid (regions * B, heads,
+// token groups): block z takes tokens z * kWarps + warp, every gridDim.z *
+// kWarps.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 anchor_units_kernel(const T* __restrict__ anchor, T* __restrict__ an, int Ha, int Wa, int Cs,
-                    int heads, int ah, int aw) {
+                    int heads, int ah, int aw, int ld) {
   const Regions reg{Ha, Wa, ah, aw, 0, 0};
   const int d = Cs / heads, Na = ah * aw, g = blockIdx.x, hh = blockIdx.y;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  for (int a = warp; a < Na; a += kWarps) {
+  for (int a = blockIdx.z * kWarps + warp; a < Na; a += gridDim.z * kWarps) {
     const size_t p = reg.pixel(g, a);
     const float v = lane < d ? to_f(anchor[p * Cs + hh * d + lane]) : 0.f;
     const float inv = rsqrtf(fmaxf(warp_sum(v * v), 1e-24f));
-    if (lane < d) an[(((size_t)g * heads + hh) * Na + a) * d + lane] = from_f<T>(v * inv);
+    if (lane < ld) an[(((size_t)g * heads + hh) * Na + a) * ld + lane] = from_f<T>(v * inv);
   }
 }
 
@@ -329,10 +332,12 @@ int launch_project(const void* x, const void* w, const float* bqkv, const float*
 // Launch anchor_units_kernel; returns 0 or a cudaError_t.
 template <typename T>
 int launch_anchor_units(const void* anchor, void* an, int B, int Ha, int Wa, int Cs, int heads,
-                        int ah, int aw, cudaStream_t stream) {
-  const dim3 grid(B * (Ha / ah) * (Wa / aw), heads);
+                        int ah, int aw, int ld, cudaStream_t stream) {
+  // about four tokens a warp
+  const int groups = (ah * aw + 4 * kWarps - 1) / (4 * kWarps);
+  const dim3 grid(B * (Ha / ah) * (Wa / aw), heads, groups < 65535 ? groups : 65535);
   anchor_units_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(anchor), static_cast<T*>(an), Ha, Wa, Cs, heads, ah, aw);
+      static_cast<const T*>(anchor), static_cast<T*>(an), Ha, Wa, Cs, heads, ah, aw, ld);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,532 @@
+// Tensor-core building blocks of the streamed-bias stripe half (B4) on its
+// bf16 route: a projection and a two-pass attention on
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulators), the products the
+// TPU kernels compute on their matrix unit with
+// dot_general(..., preferred_element_type=f32).  The fp32 route keeps
+// large_attn.cuh's CUDA-core kernels (TF32 products would not hold fp32).
+//
+//   mma_project_kernel  64 tokens of a region a block, gathered through
+//                       Regions::pixel (the cyclic shift), times the
+//                       wrapper's packed w (per head zero-padded to 32
+//                       columns, C padded to a multiple of 16) on tensor
+//                       cores; fp32 bias, per-head unit norm, bf16 rows of
+//                       kDP = 32 (zeros past d) into a workspace
+//                       [region][head][part][token][32];
+//   pad_rows_kernel     rows of d values -> rows of 32 (B4b's x1);
+//   mma_attend_kernel   one block of 4 warps per (region, head, 64 query
+//                       rows), 16 rows a warp.  Keys, values, the bias tile
+//                       (64 rows x 64 keys, bf16) and the key band ids
+//                       stream through shared memory in chunks of 64 with
+//                       cp.async, double-buffered, into fragments with
+//                       ldmatrix (.trans for v).  Pass 1 takes each row's
+//                       max and sum over all keys; pass 2 recomputes the
+//                       logits with the same mma sequence, so they are
+//                       bit-equal to pass 1's, and forms the probabilities
+//                       in registers as the A fragments of P v.
+//
+// Numerics of the TPU kernels: logit = fl(fl(acc * scale) + bias), -100
+// added where band ids differ; fp32 softmax on ex2.approx (the
+// special-function unit's 2^x) with log2(e) folded into one FMA per logit;
+// kDeferred (B3) rounds exp(s - m) to bf16 and scales the product by 1/sum,
+// else (B4) p = bf16(exp(s - m) * (1/sum)), normalised before rounding.
+// Outputs in the three layouts of AttnArgs.
+//
+// The bias is shared by every region, and the grid puts the region (B x
+// stripes) fastest, then the row tile, then the head, so the blocks in
+// flight at one time read the same bias rows of one head for every stripe:
+// each bias tile comes from HBM about once and from L2 for the other
+// B x stripes readers.
+#pragma once
+
+#include <stdint.h>
+
+#include "large_attn.cuh"
+
+namespace grlir {
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kMmaThreads = 128;    // 4 warps
+constexpr int kMmaRows = 64;        // query rows (attention) or tokens (projection) a block
+constexpr int kMmaKeys = 64;        // keys a chunk
+constexpr int kLdK = kDP + 8;       // bf16 smem row of q/k/v: 80 B, ldmatrix without conflicts
+constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies global -> shared of 16, 8 or 4 bytes; with valid
+// false nothing is read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a b: a 16x16 (row), b 16x8 (col), bf16; c 16x8 fp32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero:
+// a probability below 2^-126 adds nothing an fp32 sum keeps.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
+// times the packed wt plus bp, unit-normed for the parts set in norm_mask,
+// rounded to bf16.  wt: (nparts * heads * kDP, Cp) bf16, row
+// (p * heads + head) * kDP + e holding column e of that part's head (zero
+// for e >= d, and past C); bp: (nparts * heads * kDP,) fp32, zero past d.
+// Grid (regions * B, ceil(N / 64)).  Warp w takes tokens 16w..16w+15 of the
+// tile and one head's 32 columns at a time.
+__global__ void __launch_bounds__(kMmaThreads)
+mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+                   const float* __restrict__ bp, bf16* __restrict__ ws, Regions reg, int C,
+                   int Cp, int heads, int nparts, int norm_mask) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int ld = Cp + 8, ncols = nparts * heads * kDP;
+  const int N = reg.rh * reg.rw, g = blockIdx.x, t0 = blockIdx.y * kMmaRows;
+  const int nt = min(kMmaRows, N - t0);
+  int* pix = reinterpret_cast<int*>(mma_smem);                  // [64]
+  bf16* xs = reinterpret_cast<bf16*>(mma_smem + kMmaRows * 4);  // [64][ld]
+  bf16* wsm = xs + kMmaRows * ld;                               // [ncols][ld]
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < kMmaRows; i += kMmaThreads) pix[i] = i < nt ? reg.pixel(g, t0 + i) : 0;
+  for (int i = tid; i < ncols * (Cp / 8); i += kMmaThreads) {
+    const int r = i / (Cp / 8), c = (i % (Cp / 8)) * 8;
+    cp_async16(wsm + r * ld + c, wt + (size_t)r * Cp + c, true);
+  }
+  __syncthreads();  // pix
+  // x rows (2C bytes, 8-byte aligned when C % 4 == 0): 8-byte copies, or
+  // element loads; zeros past C and past the region's last token
+  const bool vec = C % 4 == 0;
+  for (int i = tid; i < kMmaRows * (Cp / 4); i += kMmaThreads) {
+    const int r = i / (Cp / 4), c = (i % (Cp / 4)) * 4;
+    bf16* dst = xs + r * ld + c;
+    const bf16* src = x + (size_t)pix[r] * C + c;
+    if (vec && r < nt && c < C) {
+      cp_async8(dst, src, true);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dst[e] = (r < nt && c + e < C) ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = tid % 32, warp = tid / 32, gr = lane / 4, qd = lane % 4, mi = lane / 8;
+  for (int ph = 0; ph < nparts * heads; ++ph) {
+    const int p = ph / heads, hh = ph % heads;
+    float acc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    for (int kk = 0; kk < Cp / 16; ++kk) {
+      unsigned a[4];
+      ldmatrix_x4(a, xs + (warp * 16 + (mi & 1) * 8 + lane % 8) * ld + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < 4; n += 2) {
+        unsigned b[4];
+        ldmatrix_x4(b, wsm + (ph * kDP + n * 8 + (mi >> 1) * 8 + lane % 8) * ld + kk * 16 +
+                           (mi & 1) * 8);
+        mma_bf16(acc[n], a, b[0], b[1]);
+        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+    // fp32 bias, then the unit norm over the head's 32 columns: a row's
+    // columns sit in the 4 lanes of a quad
+    const float* bb = bp + ph * kDP;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += bb[n * 8 + 2 * qd + (e & 1)];
+    if (norm_mask >> p & 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float ss = 0.f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          ss = fmaf(acc[n][2 * r], acc[n][2 * r], ss);
+          ss = fmaf(acc[n][2 * r + 1], acc[n][2 * r + 1], ss);
+        }
+        const float inv = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          acc[n][2 * r] *= inv;
+          acc[n][2 * r + 1] *= inv;
+        }
+      }
+    }
+    bf16* out = ws + (((size_t)g * heads + hh) * nparts + p) * N * kDP;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = warp * 16 + gr + 8 * r;
+      if (t >= nt) continue;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<unsigned*>(out + (size_t)(t0 + t) * kDP + n * 8 + 2 * qd) =
+            pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+}
+
+// out[r][0..kDP) = in[r][0..d), zeros past d.
+__global__ void __launch_bounds__(kThreads)
+pad_rows_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, long long rows, int d) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < rows * kDP;
+       i += (long long)gridDim.x * kThreads) {
+    const long long r = i / kDP;
+    const int e = static_cast<int>(i % kDP);
+    out[i] = e < d ? in[r * d + e] : __float2bfloat16(0.f);
+  }
+}
+
+// bytes of one pipeline stage: k, v, bias tile, key band ids
+constexpr int kStageBytes = 2 * kMmaKeys * kLdK * 2 + kMmaRows * kLdB * 2 + kMmaKeys * 4;
+constexpr int kQBytes = kMmaRows * kLdK * 2;
+constexpr int kStages = 2;  // chunks in shared memory: one computed, the next in flight
+constexpr int kMmaAttendSmem = kQBytes + kStages * kStageBytes;
+static_assert(kStageBytes % 16 == 0 && kQBytes % 16 == 0, "16-byte aligned stages");
+static_assert(kMmaRows * (kDP + 2) * 4 <= kStageBytes, "output staging fits a stage");
+
+// y = softmax(q . k^T * scale + bias + mask) v for 64 query rows of one
+// (region, head); see the note at the top.  a.q, a.k, a.v: rows of kDP
+// bf16, zero past d; a.bias: (heads, Nq, Nk) bf16.  bias_vec: the bias
+// rows are 16-byte aligned (Nk % 8 == 0), else element loads.  Grid
+// (groups * ceil(Nq / 64) * heads), the region fastest.
+template <bool kDeferred>
+__global__ void __launch_bounds__(kMmaThreads)
+mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int tiles = (a.Nq + kMmaRows - 1) / kMmaRows;
+  const int g = blockIdx.x % groups, rest = blockIdx.x / groups;
+  const int row0 = (rest % tiles) * kMmaRows, hh = rest / tiles;
+  const long long gh = (long long)g * a.heads + hh;
+  const bf16* qp = static_cast<const bf16*>(a.q) + gh * a.q_stride;
+  const bf16* kp = static_cast<const bf16*>(a.k) + gh * a.k_stride;
+  const bf16* vp = static_cast<const bf16*>(a.v) + gh * a.v_stride;
+  const bf16* bias = static_cast<const bf16*>(a.bias) + (size_t)hh * a.Nq * a.Nk;
+  const int* bq = a.band_q ? a.band_q + (size_t)(g % a.regions) * a.Nq : nullptr;
+  const int* bkg = a.band_k ? a.band_k + (size_t)(g % a.regions) * a.Nk : nullptr;
+  const float scale = a.scale ? a.scale[hh] : 1.f;
+  const int nch = (a.Nk + kMmaKeys - 1) / kMmaKeys, total = 2 * nch;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
+
+  bf16* qs = reinterpret_cast<bf16*>(mma_smem);  // [64][kLdK]
+  unsigned char* stages = mma_smem + kQBytes;
+
+  // stage layout: k [64][kLdK], v [64][kLdK], bias [64][kLdB] bf16, band ids [64]
+  auto load = [&](int it) {
+    const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys;
+    bf16* ks = reinterpret_cast<bf16*>(stages + (it % kStages) * kStageBytes);
+    bf16* vs = ks + kMmaKeys * kLdK;
+    bf16* bs = vs + kMmaKeys * kLdK;
+    int* bks = reinterpret_cast<int*>(bs + kMmaRows * kLdB);
+    for (int i = tid; i < kMmaKeys * (kDP / 8); i += kMmaThreads) {
+      const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+      const bool ok = c0 + r < a.Nk;
+      const size_t off = (size_t)(ok ? c0 + r : 0) * kDP + c;
+      cp_async16(ks + r * kLdK + c, kp + off, ok);
+      if (pass) cp_async16(vs + r * kLdK + c, vp + off, ok);
+    }
+    if (bias_vec) {
+      for (int i = tid; i < kMmaRows * (kMmaKeys / 8); i += kMmaThreads) {
+        const int r = i / (kMmaKeys / 8), c = (i % (kMmaKeys / 8)) * 8;
+        const bool ok = row0 + r < a.Nq && c0 + c < a.Nk;
+        cp_async16(bs + r * kLdB + c, ok ? bias + (size_t)(row0 + r) * a.Nk + c0 + c : bias, ok);
+      }
+    } else {
+      for (int i = tid; i < kMmaRows * kMmaKeys; i += kMmaThreads) {
+        const int r = i / kMmaKeys, c = i % kMmaKeys;
+        const bool ok = row0 + r < a.Nq && c0 + c < a.Nk;
+        bs[r * kLdB + c] = ok ? bias[(size_t)(row0 + r) * a.Nk + c0 + c] : __float2bfloat16(0.f);
+      }
+    }
+    if (bkg && tid < kMmaKeys) {
+      const bool ok = c0 + tid < a.Nk;
+      cp_async4(bks + tid, ok ? bkg + c0 + tid : bkg, ok);
+    }
+  };
+
+  for (int i = tid; i < kMmaRows * (kDP / 8); i += kMmaThreads) {
+    const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+    const bool ok = row0 + r < a.Nq;
+    cp_async16(qs + r * kLdK + c, qp + (size_t)(ok ? row0 + r : 0) * kDP + c, ok);
+  }
+  for (int it = 0; it < kStages - 1; ++it) {  // the q tile joins the first group
+    if (it < total) load(it);
+    cp_async_commit();
+  }
+
+  // this thread's rows (of the block): r0 = 16 warp + lane / 4 and r0 + 8
+  const int r0 = warp * 16 + gr;
+  int bqr[2] = {0, 0};
+  if (bq) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + r0 + 8 * r < a.Nq) bqr[r] = bq[row0 + r0 + 8 * r];
+  }
+  unsigned qa[2][4];
+  float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};  // this thread's keys
+  float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};                // the rows', pass 2
+  float o[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    if (it + kStages - 1 < total) load(it + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldmatrix_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * kLdK + kk * 16 +
+                                (mi >> 1) * 8);
+    }
+    const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys, nk = a.Nk - c0;
+    if (it == nch) {
+      // the rows' max and sum: combine the four lanes of each quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m = quad_max(m_t[r]);
+        const float l = quad_sum(l_t[r] * ex2((m_t[r] - m) * kLog2e));
+        mL[r] = m * kLog2e;
+        inv_l[r] = 1.f / l;
+      }
+    }
+    const bf16* ks = reinterpret_cast<const bf16*>(stages + (it % kStages) * kStageBytes);
+    const bf16* vs = ks + kMmaKeys * kLdK;
+    const bf16* bs = vs + kMmaKeys * kLdK;
+    const int* bks = reinterpret_cast<const int*>(bs + kMmaRows * kLdB);
+
+    // logits of this warp's 16 rows against the chunk's 64 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      unsigned b[4];
+      ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
+      mma_bf16(s[j], qa[0], b[0], b[1]);
+      mma_bf16(s[j], qa[1], b[2], b[3]);
+    }
+    // scale and bias, the shift mask, and keys past Nk drop out
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + 2 * qd;
+      const __nv_bfloat162 b0 = *reinterpret_cast<const __nv_bfloat162*>(bs + r0 * kLdB + col);
+      const __nv_bfloat162 b1 =
+          *reinterpret_cast<const __nv_bfloat162*>(bs + (r0 + 8) * kLdB + col);
+      const float bv[4] = {__low2float(b0), __high2float(b0), __low2float(b1),
+                           __high2float(b1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bv[e]);
+    }
+    if (bkg) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 bk2 = *reinterpret_cast<const int2*>(bks + j * 8 + 2 * qd);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (((e & 1) ? bk2.y : bk2.x) != bqr[e >> 1]) s[j][e] += -100.f;
+      }
+    }
+    if (nk < kMmaKeys) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + 2 * qd + (e & 1) >= nk) s[j][e] = -INFINITY;
+    }
+    if (!pass) {
+      // pass 1: fold the chunk into this thread's running max and sum
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        const float m_new = fmaxf(m_t[r], mx);
+        if (m_new != -INFINITY) {
+          const float ml = m_new * kLog2e;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            sum += ex2(fmaf(s[j][2 * r], kLog2e, -ml)) + ex2(fmaf(s[j][2 * r + 1], kLog2e, -ml));
+          l_t[r] = fmaf(l_t[r], ex2((m_t[r] - m_new) * kLog2e), sum);
+          m_t[r] = m_new;
+        }
+      }
+    } else {
+      // pass 2: probabilities, rounded to bf16 in the A-fragment layout of
+      // P v (key tiles 2k, 2k+1 make k-step k), then P v
+      unsigned pa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ex = ex2(fmaf(s[j][e], kLog2e, -mL[e >> 1]));
+          p[e] = kDeferred ? ex : ex * inv_l[e >> 1];
+        }
+        pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int n = 0; n < 4; n += 2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
+                                   (mi >> 1) * 8);
+          mma_bf16(o[n], pa[kk], b[0], b[1]);
+          mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is consumed before the next load refills it
+  }
+
+  // stage the output tile in shared memory, then write it in the caller's
+  // layout with neighbouring threads on neighbouring addresses
+  float* os = reinterpret_cast<float*>(stages);                   // [64][kDP + 1]
+  int* opix = reinterpret_cast<int*>(os + kMmaRows * (kDP + 1));  // [64]: NHWC pixels
+  if (a.rw > 0 && tid < kMmaRows) {
+    const Regions reg{a.H, a.W, a.rh, a.rw, 0, 0};
+    opix[tid] = row0 + tid < a.Nq ? reg.pixel(g, row0 + tid) : 0;
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float y = o[n][e];
+      os[(r0 + 8 * (e >> 1)) * (kDP + 1) + n * 8 + 2 * qd + (e & 1)] =
+          kDeferred ? y * inv_l[e >> 1] : y;
+    }
+  __syncthreads();
+  const int d = a.d;
+  bf16* out = static_cast<bf16*>(a.out);
+  for (int i = tid; i < kMmaRows * d; i += kMmaThreads) {
+    const int rr = a.out_cm ? i % kMmaRows : i / d, e = a.out_cm ? i / kMmaRows : i % d;
+    const int row = row0 + rr;
+    if (row >= a.Nq) continue;
+    size_t off;
+    if (a.rw > 0) {
+      off = (size_t)opix[rr] * (a.heads * d) + hh * d + e;
+    } else if (a.out_cm) {
+      off = ((size_t)gh * d + e) * a.Nq + row;
+    } else {
+      off = ((size_t)gh * a.Nq + row) * d + e;
+    }
+    out[off] = __float2bfloat16(os[rr * (kDP + 1) + e]);
+  }
+}
+
+// Launch mma_attend_kernel over `groups` regions (B x regions); returns 0,
+// -1 (shared memory) or a cudaError_t.
+template <bool kDeferred>
+int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
+  auto kernel = mma_attend_kernel<kDeferred>;
+  const int err = set_smem(kernel, kMmaAttendSmem);
+  if (err) return err;
+  const int bias_vec =
+      a.Nk % 8 == 0 && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0 ? 1 : 0;
+  const long long blocks = (long long)groups * ((a.Nq + kMmaRows - 1) / kMmaRows) * a.heads;
+  if (blocks > 0x7fffffffLL) return -1;
+  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, kMmaAttendSmem, stream>>>(a, groups,
+                                                                                bias_vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch mma_project_kernel; returns 0, -1 (shared memory) or a cudaError_t.
+int launch_mma_project(const void* x, const void* wt, const float* bp, void* ws,
+                       const Regions& reg, int B, int C, int Cp, int heads, int nparts,
+                       int norm_mask, cudaStream_t stream) {
+  const size_t smem =
+      kMmaRows * 4 + sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
+  const int err = set_smem(mma_project_kernel, smem);
+  if (err) return err;
+  const int regions = (reg.H / reg.rh) * (reg.W / reg.rw), N = reg.rh * reg.rw;
+  const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows);
+  mma_project_kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, static_cast<bf16*>(ws), reg,
+      C, Cp, heads, nparts, norm_mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch pad_rows_kernel; returns 0 or a cudaError_t.
+int launch_pad_rows(const void* in, void* out, long long rows, int d, cudaStream_t stream) {
+  long long blocks = (rows * kDP + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  pad_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const bf16*>(in), static_cast<bf16*>(out), rows, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace grlir

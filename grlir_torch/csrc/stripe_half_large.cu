@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernels `_stripe_a2w_large_kernel` and
 // `_stripe_w2a_large_kernel` (grlir/ops/pallas/block_attn.py:1037-1171,
-// driven by `_stripe_half_large_call` :1174-1283), one C entry each:
+// driven by `_stripe_half_large_call` :1174-1283), two C entries a step:
 //   a2w: x1 = softmax_N1(norm(a) . norm(k)^T * s1 + bias_a2w + mask) v
 //   w2a: y  = softmax_N2(norm(q) . norm(a)^T * s2 + bias_w2a + mask) x1
 // with the TPU kernels' numerics: biases in x's type, the logit scale
@@ -14,22 +14,34 @@
 // applied while reading; the anchor arrives rolled; y is written NHWC in
 // rolled coordinates.  Horizontal and vertical stripes are the same code.
 //
-// What bounds it on an H100: one a2w logit row is N1 fp32 values (16-32
-// KB) and k, v of a stripe N1 x 2d, so no row and no stripe's k/v fits a
-// block next to its neighbours.  As on the TPU, k and v (a2w) and q (w2a)
-// are projected once per stripe, here by a projection kernel into a
-// workspace that stays in L2 (2 x N1 x d x 2 B = 0.5-1 MB a stripe and head
-// in bf16), and the anchors are unit-normed once.  The attention kernel
-// then runs one block per (stripe, head, 32 rows) — the TPU grid's split of
-// N2 (a2w) and N1 (w2a) — and streams keys and values through shared
-// memory twice: max and sum first, then normalised probabilities times v
-// (large_attn.cuh).  At GRL-base's dn tile (8 stripes x 3 heads) that is
-// 1536 a2w and 6144 w2a blocks.  The work is 4 N1 N2 d FMAs a stripe and
-// head (plus a third again for the second logit pass), on CUDA cores in
-// fp32 on operands rounded to x's type: FMA throughput bounds it, not HBM (the
-// biases, N1 N2 values a head and direction, are read once per block row
-// from L2).  Tensor cores (mma/wgmma) are later work.
-#include "large_attn.cuh"
+// Each step projects once per stripe into a workspace that stays in L2 and
+// unit-norms the anchors once, then one attention kernel streams the keys
+// and the bias through shared memory in two passes (max and sum, then
+// normalised probabilities times v).  The work is 4 N1 N2 d multiply-adds a
+// stripe and head, plus a third again for the second logit pass.
+//
+// bf16 (the served route, `*_mma` entries): the products run on tensor
+// cores, mma.sync m16n8k16 with bf16 operands and fp32 sums, exactly the
+// TPU's matmul numerics (stripe_attn_mma.cuh).  At d = 32 the products are
+// short, so the per-logit fp32 work of the two passes (scale, bias, mask,
+// two exps) weighs as much as the mma issue rate; the bias is the one large
+// operand.  It is shared by every stripe, and the attention grid runs the B
+// x stripes readers of one (head, 64-row) bias tile next to each other, so
+// it comes from HBM about once a step and from L2 for the others: 25.2 MB a
+// step at GRL-base x4 SR 256^2 (3 x 1024 x 4096 bf16 each way) and 100.7 MB
+// at its 2 x 256^2 denoising tile, against 16 readers each.  Workspace rows
+// are zero-padded to 32 so that every attention load is a 16-byte cp.async:
+// the wrapper packs w per head into 32 columns (C padded to 16), the
+// projection and the anchors write rows of 32, and the w2a step pads x1.
+// On an H100 80GB HBM3 (700 W power limit) a step at GRL-base x4 SR 256^2
+// takes 0.52 ms of device time, 0.44 ms of it the attention kernel, which
+// one chunk in flight a block and 16 warps an SM (128 registers) leave
+// short of both its L2 bandwidth and its issue rate (PERF.md).
+//
+// fp32 (`grlir_stripe_*_large`): the TPU kernel then computes in fp32, and
+// TF32 products would not hold it, so the route stays on CUDA cores
+// (large_attn.cuh): fp32 FMAs, one block per (stripe, head, 32 rows).
+#include "stripe_attn_mma.cuh"
 
 namespace grlir {
 namespace {
@@ -43,61 +55,45 @@ struct StripeGeom {
   Regions regions() const { return Regions{H, W, sh, sw, shift_h, shift_w}; }
 };
 
-template <typename T>
-int launch_a2w(const void* x, const void* anchor, const void* w, const float* bqkv,
-               const float* s1, const void* bias, const int* bands, const int* bands_a,
-               void* ws_an, void* ws_kv, void* x1, const StripeGeom& G, cudaStream_t stream) {
-  const int d = G.d(), N1 = G.N1(), N2 = G.N2();
-  if (d > kDP) return -1;
-  int err = launch_anchor_units<T>(anchor, ws_an, G.B, G.H / G.df, G.W / G.df, G.Cs, G.heads,
-                                   G.sh / G.df, G.sw / G.df, stream);
-  if (err) return err;
-  // k (unit-normed) and v of every stripe: parts 1 and 2 of the projection
-  err = launch_project<T>(x, w, bqkv, nullptr, ws_kv, G.regions(), G.B, G.C, G.Cs, G.heads, 1,
-                          2, 0b01, stream);
-  if (err) return err;
+// The a2w attention's operands: q the unit anchors, k and v parts 0 and 1
+// of ws_kv, rows of `ld` elements; out x1 [stripe][head][N2][d].
+AttnArgs a2w_args(const void* ws_an, const void* ws_kv, size_t elem, int ld, const float* s1,
+                  const void* bias, const int* bands, const int* bands_a, void* x1,
+                  const StripeGeom& G) {
+  const int N1 = G.N1(), N2 = G.N2();
   AttnArgs a{};
   a.q = ws_an;
-  a.q_stride = (long long)N2 * d;
+  a.q_stride = (long long)N2 * ld;
   a.k = ws_kv;
-  a.v = static_cast<const T*>(ws_kv) + (long long)N1 * d;
-  a.k_stride = a.v_stride = 2LL * N1 * d;
+  a.v = static_cast<const char*>(ws_kv) + elem * N1 * ld;
+  a.k_stride = a.v_stride = 2LL * N1 * ld;
   a.Nq = N2;
   a.Nk = N1;
-  a.d = d;
+  a.d = G.d();
   a.heads = G.heads;
   a.regions = G.stripes();
   a.scale = s1;
   a.bias = bias;
   a.band_q = bands ? bands_a : nullptr;
   a.band_k = bands;
-  a.out = x1;  // [stripe][head][N2][d]
-  return launch_attend<T, T, false>(a, G.B * a.regions, stream);
+  a.out = x1;
+  return a;
 }
 
-template <typename T>
-int launch_w2a(const void* x, const void* anchor, const void* x1, const void* w,
-               const float* bqkv, const float* s2, const void* bias, const int* bands,
-               const int* bands_a, void* ws_an, void* ws_q, void* y, const StripeGeom& G,
-               cudaStream_t stream) {
-  const int d = G.d(), N1 = G.N1(), N2 = G.N2();
-  if (d > kDP) return -1;
-  int err = launch_anchor_units<T>(anchor, ws_an, G.B, G.H / G.df, G.W / G.df, G.Cs, G.heads,
-                                   G.sh / G.df, G.sw / G.df, stream);
-  if (err) return err;
-  // q (unit-normed) of every stripe: part 0 of the projection
-  err = launch_project<T>(x, w, bqkv, nullptr, ws_q, G.regions(), G.B, G.C, G.Cs, G.heads, 0, 1,
-                          0b1, stream);
-  if (err) return err;
+// The w2a attention's operands: q from ws_q, k the unit anchors, v x1,
+// rows of `ld` elements; out y NHWC at the stripes' tokens.
+AttnArgs w2a_args(const void* ws_q, const void* ws_an, const void* x1, int ld, const float* s2,
+                  const void* bias, const int* bands, const int* bands_a, void* y,
+                  const StripeGeom& G) {
   AttnArgs a{};
   a.q = ws_q;
-  a.q_stride = (long long)N1 * d;
+  a.q_stride = (long long)G.N1() * ld;
   a.k = ws_an;
   a.v = x1;
-  a.k_stride = a.v_stride = (long long)N2 * d;
-  a.Nq = N1;
-  a.Nk = N2;
-  a.d = d;
+  a.k_stride = a.v_stride = (long long)G.N2() * ld;
+  a.Nq = G.N1();
+  a.Nk = G.N2();
+  a.d = G.d();
   a.heads = G.heads;
   a.regions = G.stripes();
   a.scale = s2;
@@ -109,48 +105,146 @@ int launch_w2a(const void* x, const void* anchor, const void* x1, const void* w,
   a.W = G.W;
   a.rh = G.sh;
   a.rw = G.sw;
-  return launch_attend<T, T, false>(a, G.B * a.regions, stream);
+  return a;
+}
+
+int anchor_units(const void* anchor, void* ws_an, int ld, bool bf16_in, const StripeGeom& G,
+                 cudaStream_t stream) {
+  const int Ha = G.H / G.df, Wa = G.W / G.df, ah = G.sh / G.df, aw = G.sw / G.df;
+  if (bf16_in)
+    return launch_anchor_units<__nv_bfloat16>(anchor, ws_an, G.B, Ha, Wa, G.Cs, G.heads, ah, aw,
+                                              ld, stream);
+  return launch_anchor_units<float>(anchor, ws_an, G.B, Ha, Wa, G.Cs, G.heads, ah, aw, ld,
+                                    stream);
+}
+
+int a2w_fp32(const void* x, const void* anchor, const void* w, const float* bqkv,
+             const float* s1, const void* bias, const int* bands, const int* bands_a,
+             void* ws_an, void* ws_kv, void* x1, const StripeGeom& G, cudaStream_t stream) {
+  const int d = G.d();
+  if (d > kDP) return -1;
+  int err = anchor_units(anchor, ws_an, d, false, G, stream);
+  if (err) return err;
+  // k (unit-normed) and v of every stripe: parts 1 and 2 of the projection
+  err = launch_project<float>(x, w, bqkv, nullptr, ws_kv, G.regions(), G.B, G.C, G.Cs, G.heads,
+                              1, 2, 0b01, stream);
+  if (err) return err;
+  const AttnArgs a =
+      a2w_args(ws_an, ws_kv, sizeof(float), d, s1, bias, bands, bands_a, x1, G);
+  return launch_attend<float, float, false>(a, G.B * a.regions, stream);
+}
+
+int w2a_fp32(const void* x, const void* anchor, const void* x1, const void* w,
+             const float* bqkv, const float* s2, const void* bias, const int* bands,
+             const int* bands_a, void* ws_an, void* ws_q, void* y, const StripeGeom& G,
+             cudaStream_t stream) {
+  const int d = G.d();
+  if (d > kDP) return -1;
+  int err = anchor_units(anchor, ws_an, d, false, G, stream);
+  if (err) return err;
+  // q (unit-normed) of every stripe: part 0 of the projection
+  err = launch_project<float>(x, w, bqkv, nullptr, ws_q, G.regions(), G.B, G.C, G.Cs, G.heads,
+                              0, 1, 0b1, stream);
+  if (err) return err;
+  const AttnArgs a = w2a_args(ws_q, ws_an, x1, d, s2, bias, bands, bands_a, y, G);
+  return launch_attend<float, float, false>(a, G.B * a.regions, stream);
+}
+
+int a2w_mma(const void* x, const void* anchor, const void* wt, const float* bp,
+            const float* s1, const void* bias, const int* bands, const int* bands_a,
+            void* ws_an, void* ws_kv, void* x1, int Cp, const StripeGeom& G,
+            cudaStream_t stream) {
+  if (G.d() > kDP) return -1;
+  int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
+  if (err) return err;
+  // k (unit-normed) and v of every stripe: wt holds the k and v parts
+  err = launch_mma_project(x, wt, bp, ws_kv, G.regions(), G.B, G.C, Cp, G.heads, 2, 0b01,
+                           stream);
+  if (err) return err;
+  const AttnArgs a =
+      a2w_args(ws_an, ws_kv, sizeof(bf16), kDP, s1, bias, bands, bands_a, x1, G);
+  return launch_mma_attend<false>(a, G.B * a.regions, stream);
+}
+
+int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
+            const float* bp, const float* s2, const void* bias, const int* bands,
+            const int* bands_a, void* ws_an, void* ws_q, void* ws_x1, void* y, int Cp,
+            const StripeGeom& G, cudaStream_t stream) {
+  const int d = G.d();
+  if (d > kDP) return -1;
+  int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
+  if (err) return err;
+  // q (unit-normed) of every stripe: wt holds the q part
+  err = launch_mma_project(x, wt, bp, ws_q, G.regions(), G.B, G.C, Cp, G.heads, 1, 0b1, stream);
+  if (err) return err;
+  err = launch_pad_rows(x1, ws_x1, (long long)G.B * G.stripes() * G.heads * G.N2(), d, stream);
+  if (err) return err;
+  const AttnArgs a = w2a_args(ws_q, ws_an, ws_x1, kDP, s2, bias, bands, bands_a, y, G);
+  return launch_mma_attend<false>(a, G.B * a.regions, stream);
 }
 
 }  // namespace
 }  // namespace grlir
 
-// a2w step.  x (B, H, W, C) unrolled; anchor (B, H/df, W/df, Cs) rolled, in
-// x's type; w (C, 3Cs); bqkv (3Cs,) fp32; s1 (heads,) fp32 scale; bias
-// (heads, N2, N1) in x's type; bands (stripes, N1) and bands_a (stripes, N2)
-// int32, or both null; ws_an: B * stripes * heads * N2 * d and ws_kv:
-// B * stripes * heads * 2 * N1 * d elements of x's type; x1 (B, stripes,
-// heads, N2, d) out.  Returns 0, -1 (d > 32 or shared memory) or a
-// cudaError_t.
+// a2w step, fp32.  x (B, H, W, C) unrolled; anchor (B, H/df, W/df, Cs)
+// rolled; w (C, 3Cs); bqkv (3Cs,); s1 (heads,) scale; bias (heads, N2, N1);
+// all fp32; bands (stripes, N1) and bands_a (stripes, N2) int32, or both
+// null; ws_an: B * stripes * heads * N2 * d and ws_kv: B * stripes * heads *
+// 2 * N1 * d floats; x1 (B, stripes, heads, N2, d) out.  Returns 0, -1
+// (d > 32 or shared memory) or a cudaError_t.
 extern "C" int grlir_stripe_a2w_large(const void* x, const void* anchor, const void* w,
                                       const float* bqkv, const float* s1, const void* bias,
                                       const int* bands, const int* bands_a, void* ws_an,
                                       void* ws_kv, void* x1, int B, int H, int W, int C, int Cs,
                                       int heads, int sh, int sw, int df, int shift_h,
-                                      int shift_w, int is_bf16, void* stream) {
+                                      int shift_w, void* stream) {
   const grlir::StripeGeom G{B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return grlir::launch_a2w<__nv_bfloat16>(x, anchor, w, bqkv, s1, bias, bands, bands_a, ws_an,
-                                            ws_kv, x1, G, s);
-  return grlir::launch_a2w<float>(x, anchor, w, bqkv, s1, bias, bands, bands_a, ws_an, ws_kv, x1,
-                                  G, s);
+  return grlir::a2w_fp32(x, anchor, w, bqkv, s1, bias, bands, bands_a, ws_an, ws_kv, x1, G,
+                         static_cast<cudaStream_t>(stream));
 }
 
-// w2a step.  x1 from the a2w step; bias (heads, N1, N2) in x's type; ws_q:
-// B * stripes * heads * N1 * d elements; y (B, H, W, Cs) out, rolled
+// w2a step, fp32.  x1 from the a2w step; bias (heads, N1, N2); ws_q:
+// B * stripes * heads * N1 * d floats; y (B, H, W, Cs) out, rolled
 // coordinates; the rest as for the a2w step.
 extern "C" int grlir_stripe_w2a_large(const void* x, const void* anchor, const void* x1,
                                       const void* w, const float* bqkv, const float* s2,
                                       const void* bias, const int* bands, const int* bands_a,
                                       void* ws_an, void* ws_q, void* y, int B, int H, int W,
                                       int C, int Cs, int heads, int sh, int sw, int df,
-                                      int shift_h, int shift_w, int is_bf16, void* stream) {
+                                      int shift_h, int shift_w, void* stream) {
   const grlir::StripeGeom G{B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return grlir::launch_w2a<__nv_bfloat16>(x, anchor, x1, w, bqkv, s2, bias, bands, bands_a,
-                                            ws_an, ws_q, y, G, s);
-  return grlir::launch_w2a<float>(x, anchor, x1, w, bqkv, s2, bias, bands, bands_a, ws_an, ws_q,
-                                  y, G, s);
+  return grlir::w2a_fp32(x, anchor, x1, w, bqkv, s2, bias, bands, bands_a, ws_an, ws_q, y, G,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// a2w step, bf16 on tensor cores.  x, anchor, bias and x1 as for the fp32
+// entry in bf16; wt (2 * heads * 32, Cp) bf16 and bp (2 * heads * 32,) fp32:
+// the k and v columns of w and bqkv, per head zero-padded to 32 rows, C
+// zero-padded to Cp (a multiple of 16); s1 fp32; ws_an: B * stripes * heads
+// * N2 * 32 and ws_kv: B * stripes * heads * 2 * N1 * 32 bf16.
+extern "C" int grlir_stripe_a2w_large_mma(const void* x, const void* anchor, const void* wt,
+                                          const float* bp, const float* s1, const void* bias,
+                                          const int* bands, const int* bands_a, void* ws_an,
+                                          void* ws_kv, void* x1, int B, int H, int W, int C,
+                                          int Cs, int heads, int sh, int sw, int df,
+                                          int shift_h, int shift_w, int Cp, void* stream) {
+  const grlir::StripeGeom G{B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w};
+  return grlir::a2w_mma(x, anchor, wt, bp, s1, bias, bands, bands_a, ws_an, ws_kv, x1, Cp, G,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// w2a step, bf16 on tensor cores.  wt (heads * 32, Cp) and bp: the q
+// columns, packed as for the a2w entry; ws_q: B * stripes * heads * N1 * 32
+// and ws_x1: B * stripes * heads * N2 * 32 bf16; the rest as for the fp32
+// w2a entry in bf16.
+extern "C" int grlir_stripe_w2a_large_mma(const void* x, const void* anchor, const void* x1,
+                                          const void* wt, const float* bp, const float* s2,
+                                          const void* bias, const int* bands, const int* bands_a,
+                                          void* ws_an, void* ws_q, void* ws_x1, void* y, int B,
+                                          int H, int W, int C, int Cs, int heads, int sh, int sw,
+                                          int df, int shift_h, int shift_w, int Cp,
+                                          void* stream) {
+  const grlir::StripeGeom G{B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w};
+  return grlir::w2a_mma(x, anchor, x1, wt, bp, s2, bias, bands, bands_a, ws_an, ws_q, ws_x1, y,
+                        Cp, G, static_cast<cudaStream_t>(stream));
 }

@@ -11,6 +11,10 @@ hand-written in CUDA with a plain PyTorch version beside it:
   stripe, streamed bias (B4)  csrc/stripe_half_large.cu  stripe_a2w_large_ref,
                                                          stripe_w2a_large_ref
 
+B4 takes one of two routes by x's type, chosen before any launch: bf16 on
+tensor cores (csrc/stripe_attn_mma.cuh), fp32 on CUDA cores; each wrapper
+counts its launches by route in `route_launches`.
+
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
 version on any device.  A geometry that no TPU kernel takes raises
@@ -37,6 +41,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.layout import window_partition, window_reverse
@@ -532,13 +537,37 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
 stripe_half.launches = 0
 
 
+def _pack_w(w, b, p0: int, nparts: int, num_heads: int):
+    """Parts p0..p0+nparts (q, k, v = 0, 1, 2) of w (C, 3Cs) and b (3Cs,)
+    as B4's tensor-core projection takes them: w transposed, each head's d
+    columns zero-padded to 32 rows and C to Cp, a multiple of 16, so that
+    every row is 16-byte aligned: (nparts*h*32, Cp) bf16, and b padded the
+    same way: (nparts*h*32,) fp32."""
+    C, C3 = w.shape
+    d = C3 // (3 * num_heads)
+    cols = slice(p0 * C3 // 3, (p0 + nparts) * C3 // 3)
+    wt = w[:, cols].to(torch.bfloat16).t().reshape(nparts, num_heads, d, C)
+    wt = F.pad(wt, (0, -C % 16, 0, _LARGE_MAX_D - d))
+    bp = F.pad(b[cols].float().reshape(nparts, num_heads, d),
+               (0, _LARGE_MAX_D - d))
+    return wt.reshape(-1, wt.shape[-1]), bp.reshape(-1)
+
+
+def _count_route(fn, x: torch.Tensor) -> None:
+    """One launch of a B4 step on the route x's type takes: bf16 on tensor
+    cores, fp32 on CUDA cores."""
+    fn.launches += 1
+    fn.route_launches[
+        "tensor_core" if x.dtype == torch.bfloat16 else "cuda_core"] += 1
+
+
 def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
                      stripe: Size2, df: int, bands=None, bands_a=None,
                      shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
-    """a2w step of the streamed-bias stripe half (B4a): the CUDA kernel of
-    `csrc/stripe_half_large.cu` for a CUDA x, `stripe_a2w_large_ref` for a
-    CPU x or when kernels=False.  Returns x1 (B, nW, h, N2, d) in x's
-    type."""
+    """a2w step of the streamed-bias stripe half (B4a): the CUDA kernels of
+    `csrc/stripe_half_large.cu` for a CUDA x (tensor cores for bf16, CUDA
+    cores for fp32), `stripe_a2w_large_ref` for a CPU x or when
+    kernels=False.  Returns x1 (B, nW, h, N2, d) in x's type."""
     args = (x, anchor, wqkv, bqkv, logit_scale1, bias_a2w, stripe, df, bands,
             bands_a, shift)
     if not kernels:
@@ -557,30 +586,46 @@ def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
         x, wqkv, bqkv, [logit_scale1], [bias_a2w], [bands, bands_a],
         bias_dtype=x.dtype)
     anchor = anchor.to(x.dtype).contiguous()
-    # unit-normed anchors, then k (unit-normed) and v of every stripe
-    ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
-    ws_kv = torch.empty((B * nW, h, 2, N1, d), dtype=x.dtype, device=x.device)
+    geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     x1 = torch.empty((B, nW, h, N2, d), dtype=x.dtype, device=x.device)
-    err = cuda_build.library().grlir_stripe_a2w_large(
-        _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(b1),
-        _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_kv), _ptr(x1),
-        B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]),
-        int(x.dtype == torch.bfloat16), _stream(x))
+    lib = cuda_build.library()
+    if x.dtype == torch.bfloat16:
+        # unit-normed anchors, then k (unit-normed) and v of every stripe,
+        # in rows of 32
+        wt, bp = _pack_w(w, b, 1, 2, h)
+        ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
+                            device=x.device)
+        ws_kv = torch.empty((B * nW, h, 2, N1, _LARGE_MAX_D), dtype=x.dtype,
+                            device=x.device)
+        err = lib.grlir_stripe_a2w_large_mma(
+            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(s1), _ptr(b1),
+            _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_kv), _ptr(x1),
+            *geom, wt.shape[1], _stream(x))
+    else:
+        ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
+        ws_kv = torch.empty((B * nW, h, 2, N1, d), dtype=x.dtype,
+                            device=x.device)
+        err = lib.grlir_stripe_a2w_large(
+            _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(b1),
+            _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_kv), _ptr(x1),
+            *geom, _stream(x))
     cuda_build.check(err, "stripe_a2w_large", f"stripe {stripe}/df {df}")
-    stripe_a2w_large.launches += 1
+    _count_route(stripe_a2w_large, x)
     return x1
 
 
 stripe_a2w_large.launches = 0
+stripe_a2w_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
 def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
                      stripe: Size2, df: int, bands=None, bands_a=None,
                      shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
-    """w2a step of the streamed-bias stripe half (B4b): the CUDA kernel of
-    `csrc/stripe_half_large.cu` for a CUDA x, `stripe_w2a_large_ref` for a
-    CPU x or when kernels=False.  x1 is the a2w step's output.  Returns
-    (B, H, W, Cs), rolled coordinates."""
+    """w2a step of the streamed-bias stripe half (B4b): the CUDA kernels of
+    `csrc/stripe_half_large.cu` for a CUDA x (tensor cores for bf16, CUDA
+    cores for fp32), `stripe_w2a_large_ref` for a CPU x or when
+    kernels=False.  x1 is the a2w step's output.  Returns (B, H, W, Cs),
+    rolled coordinates."""
     args = (x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a, stripe, df,
             bands, bands_a, shift)
     if not kernels:
@@ -600,21 +645,37 @@ def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
         bias_dtype=x.dtype)
     anchor = anchor.to(x.dtype).contiguous()
     x1 = x1.to(x.dtype).contiguous()
-    # unit-normed anchors, then unit-normed q of every stripe
-    ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
-    ws_q = torch.empty((B * nW, h, 1, N1, d), dtype=x.dtype, device=x.device)
+    geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
-    err = cuda_build.library().grlir_stripe_w2a_large(
-        _ptr(x), _ptr(anchor), _ptr(x1), _ptr(w), _ptr(b), _ptr(s2),
-        _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_q),
-        _ptr(y), B, H, W, C, Cs, h, sh, sw, df, int(shift[0]),
-        int(shift[1]), int(x.dtype == torch.bfloat16), _stream(x))
+    lib = cuda_build.library()
+    if x.dtype == torch.bfloat16:
+        # unit-normed anchors, unit-normed q of every stripe and x1, in rows
+        # of 32
+        wt, bp = _pack_w(w, b, 0, 1, h)
+        ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
+                            device=x.device)
+        ws_q = torch.empty((B * nW, h, 1, N1, _LARGE_MAX_D), dtype=x.dtype,
+                           device=x.device)
+        ws_x1 = torch.empty_like(ws_an)
+        err = lib.grlir_stripe_w2a_large_mma(
+            _ptr(x), _ptr(anchor), _ptr(x1), _ptr(wt), _ptr(bp), _ptr(s2),
+            _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_q),
+            _ptr(ws_x1), _ptr(y), *geom, wt.shape[1], _stream(x))
+    else:
+        ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
+        ws_q = torch.empty((B * nW, h, 1, N1, d), dtype=x.dtype,
+                           device=x.device)
+        err = lib.grlir_stripe_w2a_large(
+            _ptr(x), _ptr(anchor), _ptr(x1), _ptr(w), _ptr(b), _ptr(s2),
+            _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_q),
+            _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "stripe_w2a_large", f"stripe {stripe}/df {df}")
-    stripe_w2a_large.launches += 1
+    _count_route(stripe_w2a_large, x)
     return y
 
 
 stripe_w2a_large.launches = 0
+stripe_w2a_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
            stripe_w2a_large)
@@ -626,8 +687,12 @@ unrouted_halves = 0
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and unrouted_halves, to 0."""
+    """Set every kernel's launch count, B4's counts by route, and
+    unrouted_halves, to 0."""
     global unrouted_halves
     for k in KERNELS:
         k.launches = 0
+    for k in (stripe_a2w_large, stripe_w2a_large):
+        for route in k.route_launches:
+            k.route_launches[route] = 0
     unrouted_halves = 0

@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "grlir_torch"
 SOURCES = ("window_half.cu", "stripe_half.cu", "window_half_large.cu",
            "stripe_half_large.cu", "flash_attention.cu", "cosine_attention.cu")
-HEADERS = ("common.cuh", "large_attn.cuh")
+HEADERS = ("common.cuh", "large_attn.cuh", "stripe_attn_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,8 +35,10 @@ SIGNATURES = {
     "grlir_window_half": [_P] * 7 + [_I] * 10 + [_P],
     "grlir_stripe_half": [_P] * 11 + [_I] * 12 + [_P],
     "grlir_window_half_large": [_P] * 8 + [_I] * 10 + [_P],
-    "grlir_stripe_a2w_large": [_P] * 11 + [_I] * 12 + [_P],
-    "grlir_stripe_w2a_large": [_P] * 12 + [_I] * 12 + [_P],
+    "grlir_stripe_a2w_large": [_P] * 11 + [_I] * 11 + [_P],
+    "grlir_stripe_w2a_large": [_P] * 12 + [_I] * 11 + [_P],
+    "grlir_stripe_a2w_large_mma": [_P] * 11 + [_I] * 12 + [_P],
+    "grlir_stripe_w2a_large_mma": [_P] * 13 + [_I] * 12 + [_P],
     "grlir_flash_rect_attention": [_P] * 10 + [_I] * 7 + [_P],
     "grlir_window_attention_qkv": _COSINE,
     "grlir_cosine_attention_split": _COSINE,

@@ -288,6 +288,67 @@ def test_stripe_half_large_ref_matches_pallas(stripe, size, patch, shifted,
     assert torch.equal(routed, got)
 
 
+# bf16 x and anchor, as the served GRL-base path runs B4: the plain version
+# rounds where the TPU kernels round (bias in bf16, the scale after the
+# product, the softmax normalised before rounding, x1 in bf16), which the
+# tensor-core kernels keep.  Tolerance: interpret mode and PyTorch on the CPU
+# may flip a bf16 rounding of a projection, a probability or x1, which moves
+# y by about one bf16 ulp; 8e-3 is two ulps at |y| in [0.5, 1) and one at
+# [1, 2), where the largest outputs lie (|y| <= 1.8 here).
+@pytest.mark.parametrize("stripe", [(16, 16), (16, 8)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_half_large_ref_matches_pallas_bf16(stripe, shifted,
+                                                   monkeypatch):
+    df, size = 2, (32, 32)
+    for mod in (jba, tba):
+        monkeypatch.setattr(mod, "_BIAS_VMEM_BUDGET", 50_000)
+        monkeypatch.setattr(mod, "_STRIPE_ATTN_BUDGET", 64 * 1024)
+    assert tba.stripe_route(size, stripe, df, HEADS) == "large"
+    args, bands, bands_a = _large_stripe_case(stripe, df, shifted, size, 12)
+    shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+    if shifted:
+        args = (args[0], np.roll(args[1], (-shift[0] // df, -shift[1] // df),
+                                 axis=(1, 2)), *args[2:])
+    x, anchor = (torch.from_numpy(a).bfloat16() for a in args[:2])
+    want = jba.fused_stripe_half(
+        _j(x.float().numpy()).astype(jnp.bfloat16),
+        _j(anchor.float().numpy()).astype(jnp.bfloat16), *map(_j, args[2:]),
+        stripe, df, bands=_j(bands), bands_a=_j(bands_a), shift=shift,
+        interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = tba.stripe_half_large_ref(x, anchor, *map(_t, args[2:]), stripe,
+                                    df, bands=_t(bands), bands_a=_t(bands_a),
+                                    shift=shift)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=8e-3, rtol=8e-3)
+    routed = tba.stripe_half(x, anchor, *map(_t, args[2:]), stripe, df,
+                             bands=_t(bands), bands_a=_t(bands_a), shift=shift)
+    assert torch.equal(routed, got)
+
+
+def test_pack_w_is_the_projection():
+    """The tensor-core route's packing of w and b (B4 on CUDA): row
+    (p*h + head)*32 + e of the packed w times x, plus the packed b, is
+    column e of that head's part p of x @ w + b; zeros past d and past C."""
+    rng = np.random.default_rng(14)
+    C, h, d = 70, 3, 10
+    w = torch.from_numpy(rng.standard_normal((C, 3 * h * d)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(3 * h * d).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((5, C)).astype(np.float32)).bfloat16()
+    full = (x.float() @ w.bfloat16().float() + b).reshape(5, 3, h, d)
+    for p0, n in ((0, 1), (1, 2)):
+        wt, bp = tba._pack_w(w.bfloat16(), b, p0, n, h)
+        assert wt.dtype == torch.bfloat16 and tuple(wt.shape) == (n * h * 32, 80)
+        assert bp.dtype == torch.float32 and tuple(bp.shape) == (n * h * 32,)
+        got = (x.float() @ wt[:, :C].float().t() + bp).reshape(5, n, h, 32)
+        torch.testing.assert_close(got[..., :d], full[:, p0:p0 + n],
+                                   atol=1e-5, rtol=1e-5)
+        assert not got[..., d:].any()
+        assert not wt[:, C:].any()
+
+
 def test_large_routes_round_as_their_tpu_kernels():
     """The large-window route differs from the small one exactly where the
     TPU kernels do: B3 rounds its bias to bf16 even for fp32 x."""
