@@ -23,11 +23,14 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      reset just before), each against the plain path; timing of each kernel
      against its plain version and the nearest PyTorch library composition,
      the x4 forward in LR megapixels a second, and the denoising tile.
-     Since slice 4 B4's bf16 steps run on tensor cores: every B4 launch is
-     counted by route (tensor cores for bf16, CUDA cores for fp32) and the
-     model, serve and repair phases check that the bf16 ones took the
-     tensor-core route; B4's bf16 gate is max(1e-2, 2 bf16 ulps of
-     max|plain|), printed beside the plain path's own spread;
+     Since slice 4 B4's bf16 steps, and since slice 5 B2's and B3's, run on
+     tensor cores: every launch of B2, B3 and B4 is counted by route
+     (tensor cores for bf16, CUDA cores for fp32), each kernel case checks
+     the route it took, and the model, serve and repair phases print the
+     counts and check that every bf16 launch took the tensor-core route and
+     every fp32 one the CUDA-core route; the bf16 gate of these three is
+     max(1e-2, 2 bf16 ulps of max|plain|), printed beside the plain path's
+     own spread;
   5. the fused engines (slice 3: B5 `flash_rect_attention`, B6
      `fused_window_attention_qkv`, B7a `fused_cosine_attention`, B7b
      `fused_cosine_attention_packed`): each kernel vs its plain version at
@@ -61,14 +64,14 @@ GRL_S_HW = 256
 BASE_HW = 256              # GRL-base x4 LR timing size (an eval tile)
 BASE_MODEL_HW = 128        # GRL-base x4 bf16 kernels-vs-plain check
 BF16_MAX_ERR = 1e-2        # bf16 outputs: a few ulps at |y| < 1
-# B4's bf16 gate, max(BF16_MAX_ERR, 2 bf16 ulps of max|plain|): its
-# tensor-core sums of the projection round k, q and v to bf16 in another
-# order than the plain path, and the clamped head's logit scale of 100 turns
-# a one-ulp flip of k or q into about a percent of a probability, so y moves
-# by a fraction of the values it averages.  Beside it the plain path's own
-# spread is printed: the plain path against itself with its projection
-# summed in float64.
-ULP_GATED = ("stripe_a2w_large", "stripe_w2a_large")
+# The bf16 gate of the tensor-core routes (B2, B3, B4), max(BF16_MAX_ERR, 2
+# bf16 ulps of max|plain|): their tensor-core sums of the projection round
+# k, q and v to bf16 in another order than the plain path, and the clamped
+# head's logit scale of 100 turns a one-ulp flip of k or q into about a
+# percent of a probability, so y moves by a fraction of the values it
+# averages.  Beside it the plain path's own spread is printed: the plain
+# path against itself with its projection summed in float64.
+ULP_GATED = ("window_half_large", "stripe_half", "stripe_a2w_large", "stripe_w2a_large")
 FP32_TOL = 1e-4            # fp32: summation order only
 MODEL_FP32_MAX_ERR = 5e-4  # whole-model fp32 rounding-order drift
 MODEL_MIN_PSNR = 60.0      # bf16 whole model, kernels vs plain
@@ -152,9 +155,10 @@ def bound_ms(n_bytes: float, flops: float, dtype):
 KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
                 "anchor_units_kernel", "attend_kernel", "tokens_major_kernel",
                 "cosine_attention_kernel", "mma_attend_kernel", "mma_project_kernel",
-                "pad_rows_kernel")
-# kernels of B4's tensor-core route: bf16 only, not templated on the type
-BF16_KINDS = ("mma_attend_kernel", "mma_project_kernel", "pad_rows_kernel")
+                "pad_rows_kernel", "mma_stripe_resident_kernel")
+# kernels of the tensor-core routes: bf16 only, not templated on the type
+BF16_KINDS = ("mma_attend_kernel", "mma_project_kernel", "pad_rows_kernel",
+              "mma_stripe_resident_kernel")
 
 
 def ptxas_report(log: str):
@@ -169,7 +173,9 @@ def ptxas_report(log: str):
             kind = max((k for k in KERNEL_KINDS if k in fn), key=len, default=fn)
             first = fn[fn.find(kind) + len(kind):] if kind in fn else ""
             bf16 = first.startswith("I13__nv_bfloat16") or kind in BF16_KINDS
-            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}>"
+            # mma_attend_kernel<true>: B3's deferred normalisation
+            deferred = ", deferred" if first.startswith("ILb1E") else ""
+            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}{deferred}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "registers" in line and name:
@@ -400,13 +406,19 @@ def main() -> int:
         return (other.float() - want.float()).abs().max().item()
 
     def run_cases(cases, max_err):
-        """Each case's kernel against its plain version, fp32 and bf16."""
+        """Each case's kernel against its plain version, fp32 and bf16; a
+        kernel with two routes must take the route of the type."""
         with torch.no_grad():
             for kname, label, (fn, _, _), x in cases:
                 for dtype in (torch.float32, torch.bfloat16):
                     xt = x.to(dtype)
+                    before = routes()
                     got, want = fn(xt, True), fn(xt, False)
                     torch.cuda.synchronize()
+                    if kname in before:
+                        route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+                        before[kname][route] += 1
+                        check(routes() == before, f"{kname} {label} {dtype}: routes {routes()}")
                     err = (got.float() - want.float()).abs().max().item()
                     max_err[kname] = max(max_err.get(kname, 0.0), err)
                     if dtype == torch.float32:
@@ -453,15 +465,15 @@ def main() -> int:
         for k in all_kernels:
             k.launches = 0
 
-    b4_steps = (ba.stripe_a2w_large, ba.stripe_w2a_large)
-
     def routes():
-        """B4's launches by route (bf16 on tensor cores, fp32 on CUDA cores)."""
-        return {k.__name__: dict(k.route_launches) for k in b4_steps}
+        """Launches by route of B2, B3 and B4 (bf16 on tensor cores, fp32 on
+        CUDA cores)."""
+        return {k.__name__: dict(k.route_launches) for k in ba.ROUTED}
 
-    def expect_routes(tensor_core=0, cuda_core=0):
-        return {k.__name__: {"tensor_core": tensor_core, "cuda_core": cuda_core}
-                for k in b4_steps}
+    def expect_routes(route="tensor_core", **launched):
+        """A routes() dict: the given launches on `route`, none elsewhere."""
+        return {k.__name__: {r: launched.get(k.__name__, 0) if r == route else 0
+                             for r in ("tensor_core", "cuda_core")} for k in ba.ROUTED}
 
     max_err, timing, served = {}, {}, {}
 
@@ -507,13 +519,15 @@ def main() -> int:
             reset_counts()
             y_k = model(lr)
             torch.cuda.synchronize()
-            per_fwd = counts()
+            per_fwd, per_route = counts(), routes()
             y_p = plain(lr)
         print(f"[model] GRL-S x4 bf16 {GRL_S_HW}^2: out {tuple(y_k.shape)}, launches "
-              f"{per_fwd} per forward, unrouted halves {ba.unrouted_halves}, PSNR "
-              f"kernels vs plain {psnr(y_k, y_p):.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
+              f"{per_fwd} per forward, B2/B3/B4 by route {per_route}, unrouted halves "
+              f"{ba.unrouted_halves}, PSNR kernels vs plain {psnr(y_k, y_p):.2f} dB, rel L2 "
+              f"{rel_l2(y_k, y_p):.3e}")
         check(per_fwd == expect(window_half=n_blocks, stripe_half=n_blocks)
               and ba.unrouted_halves == 0, f"GRL-S launches {per_fwd}")
+        check(per_route == expect_routes(stripe_half=n_blocks), f"GRL-S bf16 routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
               and bool(torch.isfinite(y_k).all()), "bf16 model output")
         check(psnr(y_k, y_p) >= MODEL_MIN_PSNR, f"bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -522,10 +536,14 @@ def main() -> int:
         m32.load_state_dict(model.state_dict())
         p32.load_state_dict(model.state_dict())
         with torch.no_grad():
+            reset_counts()
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
+            per_route = routes()
         print(f"[model] GRL-S x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-              f"(max {MODEL_FP32_MAX_ERR})")
+              f"(max {MODEL_FP32_MAX_ERR}), B2/B3/B4 by route {per_route}")
         check(err32 <= MODEL_FP32_MAX_ERR, "fp32 model kernels vs plain")
+        check(per_route == expect_routes("cuda_core", stripe_half=n_blocks),
+              f"GRL-S fp32 routes {per_route}")
         del m32, p32
 
     with Phase("GRL-S serve"):
@@ -542,10 +560,10 @@ def main() -> int:
         outs = [Restorer(model, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        got, unrouted = counts(), ba.unrouted_halves
+        got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
         served.update(window_half=got["window_half"], stripe_half=got["stripe_half"])
-        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}, unrouted "
-              f"halves {unrouted}")
+        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}, B2/B3/B4 by "
+              f"route {got_routes}, unrouted halves {unrouted}")
         for (label, img, kw), out in zip(requests, outs):
             ref = Restorer(plain, dev, scale=4, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -559,6 +577,8 @@ def main() -> int:
         check(got == expect(window_half=4 * n_blocks, stripe_half=4 * n_blocks)
               and unrouted == 0,
               f"GRL-S served launches {got} != 4 forwards x {n_blocks}")
+        check(got_routes == expect_routes(stripe_half=4 * n_blocks),
+              f"GRL-S served routes {got_routes}")
 
     with Phase("GRL-S timing"):
         for kname, label, case, xc in (cases_s[1], cases_s[-1]):
@@ -649,15 +669,16 @@ def main() -> int:
             mem["plain"] = torch.cuda.max_memory_allocated() / 2**30
         p = psnr(y_k, y_p)
         print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 (window 32, stripes 64x64, df 2): "
-              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, B4 by route "
+              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, B2/B3/B4 by route "
               f"{per_route}, PSNR kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, "
               f"max_memory_allocated kernels {mem['kernels']:.2f} GiB, plain "
               f"{mem['plain']:.2f} GiB")
         check(per_fwd == expect(window_half_large=n_blocks, stripe_a2w_large=n_blocks,
                                 stripe_w2a_large=n_blocks) and ba.unrouted_halves == 0,
               f"GRL-base launches {per_fwd}, unrouted halves {ba.unrouted_halves}")
-        check(per_route == expect_routes(tensor_core=n_blocks),
-              f"GRL-base bf16 B4 routes {per_route}")
+        base_launches = dict(window_half_large=n_blocks, stripe_a2w_large=n_blocks,
+                             stripe_w2a_large=n_blocks)
+        check(per_route == expect_routes(**base_launches), f"GRL-base bf16 routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
               and bool(torch.isfinite(y_k).all()), "GRL-base bf16 output")
         check(p >= MODEL_MIN_PSNR, f"GRL-base bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -670,10 +691,10 @@ def main() -> int:
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
             per_route = routes()
         print(f"[model] GRL-base x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-              f"(max {MODEL_FP32_MAX_ERR}), B4 by route {per_route}")
+              f"(max {MODEL_FP32_MAX_ERR}), B2/B3/B4 by route {per_route}")
         check(err32 <= MODEL_FP32_MAX_ERR, "GRL-base fp32 kernels vs plain")
-        check(per_route == expect_routes(cuda_core=n_blocks),
-              f"GRL-base fp32 B4 routes {per_route}")
+        check(per_route == expect_routes("cuda_core", **base_launches),
+              f"GRL-base fp32 routes {per_route}")
         del m32, p32
 
     with Phase("GRL-base serve"):
@@ -707,8 +728,8 @@ def main() -> int:
         got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
         served.update({k: got[k] for k in ("window_half_large", "stripe_a2w_large",
                                            "stripe_w2a_large")})
-        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, B4 by route "
-              f"{got_routes}, unrouted halves {unrouted}")
+        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, B2/B3/B4 by "
+              f"route {got_routes}, unrouted halves {unrouted}")
         for (label, _, m_plain, sc, img, kw), out in zip(requests, outs):
             ref = Restorer(m_plain, dev, scale=sc, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -724,8 +745,8 @@ def main() -> int:
                             stripe_a2w_large=forwards * n_blocks,
                             stripe_w2a_large=forwards * n_blocks) and unrouted == 0,
               f"GRL-base served launches {got} != {forwards} forwards x {n_blocks}")
-        check(got_routes == expect_routes(tensor_core=forwards * n_blocks),
-              f"GRL-base served B4 routes {got_routes}")
+        check(got_routes == expect_routes(**{k: forwards * n for k, n in base_launches.items()}),
+              f"GRL-base served routes {got_routes}")
         d32 = GRL(dn_cfg).eval().to(dev)
         q32 = GRL(replace(dn_cfg, kernels=False)).eval().to(dev)
         d32.load_state_dict(dn.state_dict())
@@ -1046,12 +1067,13 @@ def main() -> int:
         p = psnr(out, ref)
         print(f"[repair] GRL-base dn 1080x1920 whole, 4 blocks, engine v3 bf16: out "
               f"{tuple(out.shape)} in {rp_s:.2f} s, finite {finite}, launches {got}, "
-              f"B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
+              f"B2/B3/B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
               f"kernels=False {p:.2f} dB")
         check(unrouted == 2 and got == expect(window_half=4, stripe_a2w_large=2,
                                               stripe_w2a_large=2),
               f"repair launches {got}, unrouted halves {unrouted}")
-        check(got_routes == expect_routes(tensor_core=2), f"repair B4 routes {got_routes}")
+        check(got_routes == expect_routes(stripe_a2w_large=2, stripe_w2a_large=2),
+              f"repair routes {got_routes}")
         check(tuple(out.shape) == (1, 1080, 1920, 3) and finite, "repair output")
         check(p >= MODEL_MIN_PSNR, "repair: PSNR vs kernels=False")
         del rp, rp_plain, out, ref

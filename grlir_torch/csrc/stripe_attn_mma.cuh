@@ -1,17 +1,21 @@
-// Tensor-core building blocks of the streamed-bias stripe half (B4) on its
-// bf16 route: a projection and a two-pass attention on
+// Tensor-core building blocks of the bf16 routes of the large-window half
+// (B3, window_half_large.cu), the resident-bias stripe half (B2,
+// stripe_half.cu) and the streamed-bias stripe half (B4,
+// stripe_half_large.cu): a projection and a two-pass attention on
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators), the products the
 // TPU kernels compute on their matrix unit with
-// dot_general(..., preferred_element_type=f32).  The fp32 route keeps
-// large_attn.cuh's CUDA-core kernels (TF32 products would not hold fp32).
+// dot_general(..., preferred_element_type=f32).  The fp32 routes keep the
+// CUDA-core kernels (TF32 products would not hold fp32).
 //
 //   mma_project_kernel  64 tokens of a region a block, gathered through
 //                       Regions::pixel (the cyclic shift), times the
 //                       wrapper's packed w (per head zero-padded to 32
 //                       columns, C padded to a multiple of 16) on tensor
-//                       cores; fp32 bias, per-head unit norm, bf16 rows of
-//                       kDP = 32 (zeros past d) into a workspace
-//                       [region][head][part][token][32];
+//                       cores; fp32 bias, per-head unit norm, then a
+//                       per-part, per-head scale where the TPU folds the
+//                       logit scale into q or k before rounding (B2, B3);
+//                       bf16 rows of kDP = 32 (zeros past d) into a
+//                       workspace [region][head][part][token][32];
 //   pad_rows_kernel     rows of d values -> rows of 32 (B4b's x1);
 //   mma_attend_kernel   one block of 4 warps per (region, head, 64 query
 //                       rows), 16 rows a warp.  Keys, values, the bias tile
@@ -32,10 +36,10 @@
 // Outputs in the three layouts of AttnArgs.
 //
 // The bias is shared by every region, and the grid puts the region (B x
-// stripes) fastest, then the row tile, then the head, so the blocks in
-// flight at one time read the same bias rows of one head for every stripe:
-// each bias tile comes from HBM about once and from L2 for the other
-// B x stripes readers.
+// windows or stripes) fastest, then the row tile, then the head, so the
+// blocks in flight at one time read the same bias rows of one head for
+// every region: each bias tile comes from HBM about once and from L2 for
+// the other B x regions readers.
 #pragma once
 
 #include <stdint.h>
@@ -132,15 +136,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
 // times the packed wt plus bp, unit-normed for the parts set in norm_mask,
-// rounded to bf16.  wt: (nparts * heads * kDP, Cp) bf16, row
-// (p * heads + head) * kDP + e holding column e of that part's head (zero
-// for e >= d, and past C); bp: (nparts * heads * kDP,) fp32, zero past d.
+// times scale[p * heads + head] when scale is given (after the norm, as the
+// TPU folds its logit scales), rounded to bf16.  wt: (nparts * heads * kDP,
+// Cp) bf16, row (p * heads + head) * kDP + e holding column e of that
+// part's head (zero for e >= d, and past C); bp: (nparts * heads * kDP,)
+// fp32, zero past d.
 // Grid (regions * B, ceil(N / 64)).  Warp w takes tokens 16w..16w+15 of the
 // tile and one head's 32 columns at a time.
 __global__ void __launch_bounds__(kMmaThreads)
 mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                   const float* __restrict__ bp, bf16* __restrict__ ws, Regions reg, int C,
-                   int Cp, int heads, int nparts, int norm_mask) {
+                   const float* __restrict__ bp, const float* __restrict__ scale,
+                   bf16* __restrict__ ws, Regions reg, int C, int Cp, int heads, int nparts,
+                   int norm_mask) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int ld = Cp + 8, ncols = nparts * heads * kDP;
   const int N = reg.rh * reg.rw, g = blockIdx.x, t0 = blockIdx.y * kMmaRows;
@@ -218,6 +225,13 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
           acc[n][2 * r + 1] *= inv;
         }
       }
+    }
+    if (scale) {
+      const float sc = scale[ph];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= sc;
     }
     bf16* out = ws + (((size_t)g * heads + hh) * nparts + p) * N * kDP;
 #pragma unroll
@@ -504,9 +518,10 @@ int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
 }
 
 // Launch mma_project_kernel; returns 0, -1 (shared memory) or a cudaError_t.
-int launch_mma_project(const void* x, const void* wt, const float* bp, void* ws,
-                       const Regions& reg, int B, int C, int Cp, int heads, int nparts,
-                       int norm_mask, cudaStream_t stream) {
+// scale: (nparts * heads,) fp32 multipliers after the norm, or null.
+int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale,
+                       void* ws, const Regions& reg, int B, int C, int Cp, int heads,
+                       int nparts, int norm_mask, cudaStream_t stream) {
   const size_t smem =
       kMmaRows * 4 + sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
   const int err = set_smem(mma_project_kernel, smem);
@@ -514,8 +529,8 @@ int launch_mma_project(const void* x, const void* wt, const float* bp, void* ws,
   const int regions = (reg.H / reg.rh) * (reg.W / reg.rw), N = reg.rh * reg.rw;
   const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows);
   mma_project_kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, static_cast<bf16*>(ws), reg,
-      C, Cp, heads, nparts, norm_mask);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, scale, static_cast<bf16*>(ws),
+      reg, C, Cp, heads, nparts, norm_mask);
   return static_cast<int>(cudaGetLastError());
 }
 

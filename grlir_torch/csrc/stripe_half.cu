@@ -1,5 +1,6 @@
-// Anchored-stripe half of GRL's mixed attention, one CUDA block per
-// (stripe, head).
+// Anchored-stripe half of GRL's mixed attention for stripes whose biases
+// fit the TPU's resident budget (GRL-S: stripes 8x64 and 64x8 at df 4, N1 =
+// 512 tokens, N2 = 32 anchors).
 //
 // Replaces the Pallas kernel `_stripe_block_kernel`, resident-bias path
 // (grlir/ops/pallas/block_attn.py:589-719, entry `fused_stripe_half`).  For
@@ -8,21 +9,42 @@
 //   w2a: y  = softmax_N2((norm(q) s2) . norm(anchor)^T + bias_w2a + mask) x1
 // reading x in NHWC with the cyclic stripe shift applied while reading (the
 // anchor arrives already rolled) and writing y in NHWC, in rolled
-// coordinates.  Horizontal and vertical stripes are the same code.
+// coordinates.  Horizontal and vertical stripes are the same code.  Both
+// softmaxes are deferred as on the TPU: exp(s - max) in fp32, rounded to
+// x's type for the product, which is then scaled by 1/sum; the biases stay
+// fp32; x1 is rounded to x's type before w2a.
 //
 // What bounds it on an H100: the TPU kernel keeps the whole (h, N2, N1)
 // logit matrix and both biases resident (up to 4 MB); a Hopper block has at
-// most 227 KB of shared memory.  So this kernel streams the N1 tokens in
-// tiles of 64, twice: pass A projects k and v per tile and folds the tile
-// into an online (running max and sum) softmax over N1 for every anchor
-// row; pass B projects q per tile, and its softmax over N2 is complete per
-// token.  Shared memory then holds one tile, the anchor and x1, whatever N1
-// is.  As in the window kernel the qkv projection dominates the FLOPs and
-// runs on CUDA cores in fp32 (bf16-rounded operands), so FMA issue and
-// shared-memory traffic bound it, not HBM.  Tensor cores are later work.
+// most 227 KB of shared memory.  Per launch at GRL-S 256^2 the qkv
+// projection is 3.2 GFLOP and the two attentions 1.1; the bytes that must
+// move are x and y, 25 MB.
+//
+// bf16 (the served route, `grlir_stripe_half_mma`): two kernels on tensor
+// cores, mma.sync m16n8k16 with bf16 operands and fp32 sums.
+// mma_project_kernel (stripe_attn_mma.cuh) writes q (unit-normed, times
+// s2), k (unit-normed, times s1) and v of every stripe into workspace rows
+// of 32 (w packed per head by the wrapper, so d = 30 and C = 180 keep
+// 16-byte copies); the workspace (25 MB at GRL-S 256^2) stays in the 50 MB
+// L2 for mma_stripe_resident_kernel, one block of 4 warps per (stripe,
+// head).  That block unit-norms the stripe's anchors into shared memory,
+// runs a2w with 16 anchor rows a warp against k and v streamed in chunks of
+// 64 (cp.async, double-buffered; two passes: max and sum, then the rounded
+// exps times v), keeps x1 in shared memory, then runs w2a with 16 stripe
+// tokens a warp against the resident anchors and x1.  The workspace round
+// trip costs about twice the bytes of x and y.
+//
+// fp32 (`grlir_stripe_half`): the TPU kernel then computes in fp32, and
+// TF32 products would not hold it, so the route stays on CUDA cores:
+// stripe_half_kernel streams the N1 tokens in tiles of 64, twice: pass A
+// projects k and v per tile and folds the tile into an online (running max
+// and sum) softmax over N1 for every anchor row; pass B projects q per
+// tile, and its softmax over N2 is complete per token.  Shared memory then
+// holds one tile, the anchor and x1, whatever N1 is; FMA issue and
+// shared-memory traffic bound it.
 #include <algorithm>
 
-#include "common.cuh"
+#include "stripe_attn_mma.cuh"
 
 namespace grlir {
 
@@ -190,16 +212,9 @@ int launch_stripe_half(const void* x, const void* anchor, const void* w, const f
       sizeof(float) *
       (kTileRows + 2 * d + std::max(kProjScratch, std::max(N2 * (kTileRows + 1), kWarps * N2)) +
        kTileRows * (2 * d + 1) + 2 * N2 * (d + 1) + 2 * N2);
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(limit)) return -1;
   auto kernel = stripe_half_kernel<T>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = set_smem(kernel, smem);
+  if (err) return err;
   const dim3 grid(B * (H / sh) * (W / sw), heads);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(anchor), static_cast<const T*>(w),
@@ -208,22 +223,381 @@ int launch_stripe_half(const void* x, const void* anchor, const void* w, const f
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------ bf16 on tensor cores
+
+namespace {
+
+constexpr int kMmaWarps = kMmaThreads / 32;
+
+// The row statistics of a softmax over key chunks, kept per thread for its
+// two rows (r0 = lane / 4 and r0 + 8 of the warp's 16): fold a chunk's
+// logits s[8][4] (64 keys, the mma accumulator layout) into the running max
+// m and sum l.
+__device__ __forceinline__ void fold_rows(const float (&s)[8][4], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    const float m_new = fmaxf(m[r], mx);
+    if (m_new != -INFINITY) {
+      const float ml = m_new * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += ex2(fmaf(s[j][2 * r], kLog2e, -ml)) + ex2(fmaf(s[j][2 * r + 1], kLog2e, -ml));
+      l[r] = fmaf(l[r], ex2((m[r] - m_new) * kLog2e), sum);
+      m[r] = m_new;
+    }
+  }
+}
+
+// The rows' max (times log2 e) and 1/sum: the four lanes of each quad
+// combined.
+__device__ __forceinline__ void finish_rows(const float (&m)[2], const float (&l)[2],
+                                            float (&mL)[2], float (&inv_l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mq = quad_max(m[r]);
+    mL[r] = mq * kLog2e;
+    inv_l[r] = 1.f / quad_sum(l[r] * ex2((m[r] - mq) * kLog2e));
+  }
+}
+
+// o += bf16(exp(s - max)) v over a chunk of 64 keys whose first nk are
+// valid: the exps rounded in the A-fragment layout of P v (key tiles 2k,
+// 2k+1 make k-step k), v rows of kLdK in shared memory.
+__device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float (&mL)[2],
+                                            const bf16* vs, int nk, int lane, float (&o)[4][4]) {
+  const int mi = lane / 8;
+  unsigned pa[4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = ex2(fmaf(s[j][e], kLog2e, -mL[e >> 1]));
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk * 16 >= nk) break;  // exps of keys past nk are 0, their rows of v too
+#pragma unroll
+    for (int n = 0; n < 4; n += 2) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
+                               (mi >> 1) * 8);
+      mma_bf16(o[n], pa[kk], b[0], b[1]);
+      mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Logits of a warp's 16 rows (A fragments qa) against a chunk of 64 keys
+// (rows of kLdK in shared memory, the first nk valid), plus the fp32 bias
+// bias[row][c0 + key] (the warp's rows start at row0; rows of ld columns;
+// rows past nrows take 0), -100 where the band ids of row and key differ
+// (bk null: no mask); keys past nk are -inf.  bias_vec: 8-byte bias loads
+// (ld even).
+__device__ __forceinline__ void chunk_logits(const unsigned (&qa)[2][4], const bf16* ks, int nk,
+                                             const float* bias, int ld, int row0, int nrows,
+                                             int c0, bool bias_vec, const int* bk,
+                                             const int (&bq)[2], int lane, float (&s)[8][4]) {
+  const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (j * 8 >= nk) continue;
+    unsigned b[4];
+    ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
+    mma_bf16(s[j], qa[0], b[0], b[1]);
+    mma_bf16(s[j], qa[1], b[2], b[3]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + gr + 8 * r;
+    if (row >= nrows) continue;
+    const float* brow = bias + (size_t)row * ld + c0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j * 8 + 2 * qd;
+      if (col >= nk) continue;
+      float2 bv;
+      if (bias_vec) {
+        bv = __ldg(reinterpret_cast<const float2*>(brow + col));
+      } else {
+        bv.x = __ldg(brow + col);
+        bv.y = col + 1 < nk ? __ldg(brow + col + 1) : 0.f;
+      }
+      s[j][2 * r] += bv.x;
+      s[j][2 * r + 1] += bv.y;
+      if (bk) {
+        if (bk[col] != bq[r]) s[j][2 * r] += -100.f;
+        if (bk[col + 1] != bq[r]) s[j][2 * r + 1] += -100.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (j * 8 + 2 * qd + (e & 1) >= nk) s[j][e] = -INFINITY;
+}
+
+// bytes of one a2w pipeline stage: k and v chunks and their band ids
+constexpr int kResStage = 2 * kMmaKeys * kLdK * 2 + kMmaKeys * 4;
+static_assert(kResStage % 16 == 0, "16-byte aligned stages");
+
+// Shared memory of mma_stripe_resident_kernel for N2 anchors: anchors, x1
+// (rows of kLdK, N2 rounded up to a key chunk) and their band ids, then the
+// stages.
+size_t resident_smem(int N2) {
+  const size_t n2p = (N2 + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
+  return n2p * (2 * kLdK * sizeof(bf16) + 4) + kStages * kResStage;
+}
+
+// Both attentions of one (stripe, head); see the note at the top.  ws:
+// [stripe][head][q|k|v][N1][kDP] from mma_project_kernel (q times s2, k
+// times s1); anchor (B, H/df, W/df, Cs) rolled; bias1 (heads, N2, N1),
+// bias2 (heads, N1, N2) fp32; bands (stripes, N1) and bands_a (stripes,
+// N2) or null; y (B, H, W, Cs).  Grid (groups * heads), the stripe fastest.
+__global__ void __launch_bounds__(kMmaThreads)
+mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__ anchor,
+                           const float* __restrict__ bias1, const float* __restrict__ bias2,
+                           const int* __restrict__ bands, const int* __restrict__ bands_a,
+                           bf16* __restrict__ y, int H, int W, int Cs, int heads, int sh, int sw,
+                           int df, int groups) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int g = blockIdx.x % groups, hh = blockIdx.x / groups;
+  const int ah = sh / df, aw = sw / df, N1 = sh * sw, N2 = ah * aw, d = Cs / heads;
+  const int n2p = (N2 + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
+  const int regions = (H / sh) * (W / sw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
+  const bf16* qp = ws + ((size_t)g * heads + hh) * 3 * N1 * kDP;
+  const bf16* kp = qp + (size_t)N1 * kDP;
+  const bf16* vp = kp + (size_t)N1 * kDP;
+  const float* b1 = bias1 + (size_t)hh * N2 * N1;
+  const float* b2 = bias2 + (size_t)hh * N1 * N2;
+  const int* bt = bands ? bands + (size_t)(g % regions) * N1 : nullptr;
+  const int* bta = bands ? bands_a + (size_t)(g % regions) * N2 : nullptr;
+
+  bf16* an = reinterpret_cast<bf16*>(mma_smem);   // [n2p][kLdK] unit anchors
+  bf16* x1 = an + n2p * kLdK;                     // [n2p][kLdK] a2w output
+  int* ban = reinterpret_cast<int*>(x1 + n2p * kLdK);  // [n2p] anchor band ids
+  unsigned char* stages = reinterpret_cast<unsigned char*>(ban + n2p);
+
+  // a2w streams k (both passes) and v (pass 2) through the stages
+  const int nch = (N1 + kMmaKeys - 1) / kMmaKeys, total = 2 * nch;
+  auto load = [&](int it) {
+    const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys;
+    bf16* ks = reinterpret_cast<bf16*>(stages + (it % kStages) * kResStage);
+    bf16* vs = ks + kMmaKeys * kLdK;
+    int* bks = reinterpret_cast<int*>(vs + kMmaKeys * kLdK);
+    for (int i = tid; i < kMmaKeys * (kDP / 8); i += kMmaThreads) {
+      const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+      const bool ok = c0 + r < N1;
+      const size_t off = (size_t)(ok ? c0 + r : 0) * kDP + c;
+      cp_async16(ks + r * kLdK + c, kp + off, ok);
+      if (pass) cp_async16(vs + r * kLdK + c, vp + off, ok);
+    }
+    if (bt && tid < kMmaKeys) {
+      const bool ok = c0 + tid < N1;
+      cp_async4(bks + tid, ok ? bt + c0 + tid : bt, ok);
+    }
+  };
+  load(0);  // in flight while the anchors are normed
+  cp_async_commit();
+
+  // the stripe's anchors, unit-normed and rounded (one warp a token, one
+  // lane a channel), zero rows past N2; x1 zeroed
+  const Regions areg{H / df, W / df, ah, aw, 0, 0};
+  for (int a = warp; a < n2p; a += kMmaWarps) {
+    float v = 0.f;
+    if (a < N2 && lane < d)
+      v = __bfloat162float(anchor[(size_t)areg.pixel(g, a) * Cs + hh * d + lane]);
+    const float inv = rsqrtf(fmaxf(warp_sum(v * v), 1e-24f));
+    an[a * kLdK + lane] = __float2bfloat16(v * inv);
+    x1[a * kLdK + lane] = __float2bfloat16(0.f);
+    if (lane == 0) ban[a] = bta && a < N2 ? bta[a] : 0;
+  }
+
+  // a2w: 16 anchor rows a warp, 64 a round, against the N1 keys in chunks
+  const bool vec1 = N1 % 2 == 0, vec2 = N2 % 2 == 0;
+  const int rounds = (N2 + kMmaRows - 1) / kMmaRows;
+  for (int rd = 0; rd < rounds; ++rd) {
+    if (rd > 0) {  // the previous round consumed every stage
+      load(0);
+      cp_async_commit();
+    }
+    const int row0 = rd * kMmaRows + warp * 16;
+    const bool active = row0 < N2;
+    unsigned qa[2][4];
+    int bq[2] = {0, 0};
+    float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};
+    float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
+    float o[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    for (int it = 0; it < total; ++it) {
+      if (it + 1 < total) load(it + 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+      const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys;
+      if (active) {
+        if (it == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            ldmatrix_x4(qa[kk], an + (row0 + (mi & 1) * 8 + lane % 8) * kLdK + kk * 16 +
+                                    (mi >> 1) * 8);
+          bq[0] = ban[row0 + gr];
+          bq[1] = ban[row0 + gr + 8];
+        }
+        if (it == nch) finish_rows(m_t, l_t, mL, inv_l);
+        const bf16* ks = reinterpret_cast<const bf16*>(stages + (it % kStages) * kResStage);
+        const bf16* vs = ks + kMmaKeys * kLdK;
+        const int* bks = reinterpret_cast<const int*>(vs + kMmaKeys * kLdK);
+        float s[8][4];
+        chunk_logits(qa, ks, min(kMmaKeys, N1 - c0), b1, N1, row0, N2, c0, vec1,
+                     bt ? bks : nullptr, bq, lane, s);
+        if (!pass) {
+          fold_rows(s, m_t, l_t);
+        } else {
+          exp_times_v(s, mL, vs, min(kMmaKeys, N1 - c0), lane, o);
+        }
+      }
+      __syncthreads();  // the stage is consumed before the next load refills it
+    }
+    // x1 = (e v) / sum, rounded to bf16: the w2a product's operand
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + gr + 8 * r;
+        if (row >= N2) continue;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          *reinterpret_cast<unsigned*>(x1 + row * kLdK + n * 8 + 2 * qd) =
+              pack_bf16(o[n][2 * r] * inv_l[r], o[n][2 * r + 1] * inv_l[r]);
+      }
+    }
+  }
+  __syncthreads();  // x1 complete
+
+  // w2a: 16 stripe tokens a warp against the resident anchors and x1; one
+  // chunk of keys (N2 <= 64) keeps its logits from the statistics pass
+  const Regions reg{H, W, sh, sw, 0, 0};  // y in rolled coordinates
+  const int nchb = n2p / kMmaKeys;
+  for (int t0 = warp * 16; t0 < N1; t0 += kMmaWarps * 16) {
+    unsigned qa[2][4];
+    int bq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + gr + 8 * r;
+      const bool ok = t < N1;
+      const bf16* qrow = qp + (size_t)(ok ? t : 0) * kDP + 2 * qd;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        qa[kk][r] = ok ? __ldg(reinterpret_cast<const unsigned*>(qrow + kk * 16)) : 0u;
+        qa[kk][r + 2] = ok ? __ldg(reinterpret_cast<const unsigned*>(qrow + kk * 16 + 8)) : 0u;
+      }
+      bq[r] = bt && ok ? bt[t] : 0;
+    }
+    float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f}, mL[2], inv_l[2];
+    float o[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    float s[8][4];
+    for (int c = 0; c < nchb; ++c) {
+      const int c0 = c * kMmaKeys;
+      chunk_logits(qa, an + c0 * kLdK, min(kMmaKeys, N2 - c0), b2, N2, t0, N1, c0, vec2,
+                   bt ? ban + c0 : nullptr, bq, lane, s);
+      fold_rows(s, m_t, l_t);
+    }
+    finish_rows(m_t, l_t, mL, inv_l);
+    for (int c = 0; c < nchb; ++c) {
+      const int c0 = c * kMmaKeys;
+      if (nchb > 1)
+        chunk_logits(qa, an + c0 * kLdK, min(kMmaKeys, N2 - c0), b2, N2, t0, N1, c0, vec2,
+                     bt ? ban + c0 : nullptr, bq, lane, s);
+      exp_times_v(s, mL, x1 + c0 * kLdK, min(kMmaKeys, N2 - c0), lane, o);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + gr + 8 * r;
+      if (t >= N1) continue;
+      bf16* out = y + (size_t)reg.pixel(g, t) * Cs + hh * d;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int e = n * 8 + 2 * qd;
+        if (e < d) out[e] = __float2bfloat16(o[n][2 * r] * inv_l[r]);
+        if (e + 1 < d) out[e + 1] = __float2bfloat16(o[n][2 * r + 1] * inv_l[r]);
+      }
+    }
+  }
+}
+
+// The bf16 route: the projection, then mma_stripe_resident_kernel.
+// Returns 0, -1 (d > 32 or shared memory) or a cudaError_t.
+int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, const float* bp,
+                           const float* scale, const float* b1, const float* b2,
+                           const int* bands, const int* bands_a, void* ws, void* y, int B, int H,
+                           int W, int C, int Cs, int heads, int sh, int sw, int df, int shift_h,
+                           int shift_w, int Cp, cudaStream_t stream) {
+  if (Cs / heads > kDP) return -1;
+  const size_t smem = resident_smem((sh / df) * (sw / df));
+  int err = set_smem(mma_stripe_resident_kernel, smem);
+  if (err) return err;
+  // q (unit-normed, times s2), k (unit-normed, times s1), v
+  const Regions reg{H, W, sh, sw, shift_h, shift_w};
+  err = launch_mma_project(x, wt, bp, scale, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+  if (err) return err;
+  const int groups = B * (H / sh) * (W / sw);
+  const long long blocks = (long long)groups * heads;
+  if (blocks > 0x7fffffffLL) return -1;
+  mma_stripe_resident_kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(ws), static_cast<const bf16*>(anchor), b1, b2, bands, bands_a,
+      static_cast<bf16*>(y), H, W, Cs, heads, sh, sw, df, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 }  // namespace grlir
 
-// Returns 0 on success, -1 when the stripe does not fit in shared memory, or
-// the cudaError_t of a failed launch.
+// fp32.  x (B, H, W, C) unrolled; anchor (B, H/df, W/df, Cs) rolled; w (C,
+// 3Cs); bqkv (3Cs,); s1, s2 (heads,) scales; b1 (heads, N2, N1); b2 (heads,
+// N1, N2); all fp32; bands (stripes, N1) and bands_a (stripes, N2) int32,
+// or both null; y (B, H, W, Cs), rolled coordinates.  Returns 0 on success,
+// -1 when the stripe does not fit in shared memory, or the cudaError_t of a
+// failed launch.
 extern "C" int grlir_stripe_half(const void* x, const void* anchor, const void* w,
                                  const float* bqkv, const float* s1, const float* s2,
                                  const float* b1, const float* b2, const int* bands,
                                  const int* bands_a, void* y, int B, int H, int W, int C,
                                  int Cs, int heads, int sh, int sw, int df, int shift_h,
-                                 int shift_w, int is_bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return grlir::launch_stripe_half<__nv_bfloat16>(x, anchor, w, bqkv, s1, s2, b1, b2,
-                                                    bands, bands_a, y, B, H, W, C, Cs, heads,
-                                                    sh, sw, df, shift_h, shift_w, s);
+                                 int shift_w, void* stream) {
   return grlir::launch_stripe_half<float>(x, anchor, w, bqkv, s1, s2, b1, b2, bands, bands_a,
                                           y, B, H, W, C, Cs, heads, sh, sw, df, shift_h,
-                                          shift_w, s);
+                                          shift_w, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 on tensor cores.  x, anchor and y as for the fp32 entry in bf16; b1,
+// b2 fp32; wt (3 * heads * 32, Cp) bf16 and bp (3 * heads * 32,) fp32: w
+// and bqkv packed per head into 32 rows, C zero-padded to Cp (a multiple
+// of 16); scale (3 * heads,) fp32: the multipliers of q, k and v after the
+// unit norm (s2, s1, ones); ws: B * stripes * heads * 3 * N1 * 32 bf16.
+extern "C" int grlir_stripe_half_mma(const void* x, const void* anchor, const void* wt,
+                                     const float* bp, const float* scale, const float* b1,
+                                     const float* b2, const int* bands, const int* bands_a,
+                                     void* ws, void* y, int B, int H, int W, int C, int Cs,
+                                     int heads, int sh, int sw, int df, int shift_h,
+                                     int shift_w, int Cp, void* stream) {
+  return grlir::launch_stripe_half_mma(x, anchor, wt, bp, scale, b1, b2, bands, bands_a, ws, y,
+                                       B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w, Cp,
+                                       static_cast<cudaStream_t>(stream));
 }

@@ -8,43 +8,50 @@
 // reading), unit-norm q (times the logit scale) and k, cosine attention
 // with the continuous position bias, which the TPU keeps in bf16 whatever
 // x's type, and the shift-band mask; the head's output channels are written
-// NHWC in rolled coordinates.
+// NHWC in rolled coordinates.  Softmax as the TPU's (:286-301): e = exp(s -
+// max) in fp32, rounded to x's type for the product with v, which is then
+// scaled by 1/sum (deferred normalisation).
 //
 // What bounds it on an H100: a (window, head) needs N * 3d values of q, k
 // and v (1024 x 90 x 4 B = 369 KB in fp32), more than one block's 227 KB of
 // shared memory, and its N x N logits (4 MB) far more.  The TPU walks q in
 // row tiles against k and v resident in VMEM.  Here a projection kernel
-// writes q, k and v once to a workspace (2 x 3 x N x d bytes a window and
-// head in bf16; it stays in the 50 MB L2 at GRL-base's 256^2 tile), and the
-// attention kernel runs one block per 32 query rows, streaming k and v
-// through shared memory (large_attn.cuh).  The FLOPs (2 N^2 d a head for
-// the attention, 3 N C d for the projection) run on CUDA cores in fp32 on
-// operands rounded to x's type, so FMA throughput bounds it, not HBM: at 256^2
-// the kernel reads x once and the bias once per block from L2.  Tensor
-// cores (mma/wgmma) are later work.
-#include "large_attn.cuh"
+// writes q, k and v once to a workspace (it stays in the 50 MB L2 at
+// GRL-base's 256^2 tile), and an attention kernel streams k, v and the bias
+// through shared memory for tiles of query rows.  The work is 2 N^2 d
+// multiply-adds a window and head for the attention (plus a third again for
+// the second logit pass) and 3 N C d for the projection; the bias (3 x 2 MB
+// in bf16) is the one large operand, shared by every window.
+//
+// bf16 (the served route, `grlir_window_half_large_mma`): B4's tensor-core
+// pipeline (stripe_attn_mma.cuh) with B3's rounding: mma.sync m16n8k16
+// with bf16 operands and fp32 sums; the projection folds the logit scale
+// into q after the unit norm and before the bf16 rounding, as the TPU does
+// (:272, :280), into workspace rows padded to 32 (w packed per head by the
+// wrapper, C padded to 16, so d = 30 and C = 180 keep 16-byte copies); the
+// attention runs kDeferred, 64 query rows a block with the window the
+// grid's fastest index, so each bias tile comes from HBM about once and
+// from L2 for the other B x 64 windows.
+//
+// fp32 (`grlir_window_half_large`): the TPU kernel then computes in fp32,
+// and TF32 products would not hold it, so the route stays on CUDA cores
+// (large_attn.cuh): fp32 FMAs, one block per (window, head, 32 rows).
+#include "stripe_attn_mma.cuh"
 
 namespace grlir {
 namespace {
 
-template <typename T>
-int launch_window_half_large(const void* x, const void* w, const float* bqkv,
-                             const float* scale, const void* bias, const int* bands, void* ws,
-                             void* y, int B, int H, int W, int C, int Cw, int heads, int wh,
-                             int ww, int shift, cudaStream_t stream) {
-  const int d = Cw / heads, N = wh * ww;
-  if (d > kDP) return -1;
-  const Regions reg{H, W, wh, ww, shift, shift};
-  // q (unit-normed, times the scale), k (unit-normed), v
-  int err = launch_project<T>(x, w, bqkv, scale, ws, reg, B, C, Cw, heads, 0, 3, 0b011, stream);
-  if (err) return err;
+// Attention operands of a (window, head) in the workspace [window][head]
+// [q|k|v][N][ld]; y NHWC at the windows' tokens, rolled coordinates.
+AttnArgs window_args(const void* ws, size_t elem, int ld, const void* bias, const int* bands,
+                     void* y, int H, int W, int d, int heads, int wh, int ww) {
+  const long long part = (long long)wh * ww * ld;
   AttnArgs a{};
-  const long long part = (long long)N * d;
   a.q = ws;
-  a.k = static_cast<const T*>(ws) + part;
-  a.v = static_cast<const T*>(ws) + 2 * part;
+  a.k = static_cast<const char*>(ws) + elem * part;
+  a.v = static_cast<const char*>(ws) + 2 * elem * part;
   a.q_stride = a.k_stride = a.v_stride = 3 * part;
-  a.Nq = a.Nk = N;
+  a.Nq = a.Nk = wh * ww;
   a.d = d;
   a.heads = heads;
   a.regions = (H / wh) * (W / ww);
@@ -56,28 +63,66 @@ int launch_window_half_large(const void* x, const void* w, const float* bqkv,
   a.W = W;
   a.rh = wh;
   a.rw = ww;
-  return launch_attend<T, __nv_bfloat16, true>(a, B * a.regions, stream);
+  return a;
+}
+
+int window_half_large_fp32(const void* x, const void* w, const float* bqkv, const float* scale,
+                           const void* bias, const int* bands, void* ws, void* y, int B, int H,
+                           int W, int C, int Cw, int heads, int wh, int ww, int shift,
+                           cudaStream_t stream) {
+  const int d = Cw / heads;
+  if (d > kDP) return -1;
+  const Regions reg{H, W, wh, ww, shift, shift};
+  // q (unit-normed, times the scale), k (unit-normed), v
+  int err = launch_project<float>(x, w, bqkv, scale, ws, reg, B, C, Cw, heads, 0, 3, 0b011, stream);
+  if (err) return err;
+  const AttnArgs a = window_args(ws, sizeof(float), d, bias, bands, y, H, W, d, heads, wh, ww);
+  return launch_attend<float, __nv_bfloat16, true>(a, B * a.regions, stream);
+}
+
+int window_half_large_mma(const void* x, const void* wt, const float* bp, const float* scale,
+                          const void* bias, const int* bands, void* ws, void* y, int B, int H,
+                          int W, int C, int Cw, int heads, int wh, int ww, int shift, int Cp,
+                          cudaStream_t stream) {
+  const int d = Cw / heads;
+  if (d > kDP) return -1;
+  const Regions reg{H, W, wh, ww, shift, shift};
+  // q (unit-normed, times the scale), k (unit-normed), v, in rows of 32
+  int err = launch_mma_project(x, wt, bp, scale, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+  if (err) return err;
+  const AttnArgs a = window_args(ws, sizeof(bf16), kDP, bias, bands, y, H, W, d, heads, wh, ww);
+  return launch_mma_attend<true>(a, B * a.regions, stream);
 }
 
 }  // namespace
 }  // namespace grlir
 
-// x (B, H, W, C) unrolled; w (C, 3Cw); bqkv (3Cw,) fp32; scale (heads,)
-// fp32 exp(min(logit_scale, log 100)); bias (heads, N, N) bf16; bands
-// (windows, N) int32 or null; ws: workspace of B * windows * heads * 3 * N * d
-// elements of x's type; y (B, H, W, Cw).  Returns 0 on success, -1 when the
-// geometry is beyond the kernels (d > 32 or shared memory), or the
-// cudaError_t of a failed launch.
+// fp32.  x (B, H, W, C) unrolled; w (C, 3Cw); bqkv (3Cw,); scale (heads,)
+// exp(min(logit_scale, log 100)); all fp32; bias (heads, N, N) bf16; bands
+// (windows, N) int32 or null; ws: B * windows * heads * 3 * N * d floats;
+// y (B, H, W, Cw).  Returns 0 on success, -1 when the geometry is beyond
+// the kernels (d > 32 or shared memory), or the cudaError_t of a failed
+// launch.
 extern "C" int grlir_window_half_large(const void* x, const void* w, const float* bqkv,
                                        const float* scale, const void* bias, const int* bands,
                                        void* ws, void* y, int B, int H, int W, int C, int Cw,
-                                       int heads, int wh, int ww, int shift, int is_bf16,
-                                       void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return grlir::launch_window_half_large<__nv_bfloat16>(x, w, bqkv, scale, bias, bands, ws, y,
-                                                          B, H, W, C, Cw, heads, wh, ww, shift,
-                                                          s);
-  return grlir::launch_window_half_large<float>(x, w, bqkv, scale, bias, bands, ws, y, B, H, W,
-                                                C, Cw, heads, wh, ww, shift, s);
+                                       int heads, int wh, int ww, int shift, void* stream) {
+  return grlir::window_half_large_fp32(x, w, bqkv, scale, bias, bands, ws, y, B, H, W, C, Cw,
+                                       heads, wh, ww, shift, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 on tensor cores.  x, bias and y as for the fp32 entry in bf16; wt
+// (3 * heads * 32, Cp) bf16 and bp (3 * heads * 32,) fp32: w and bqkv
+// packed per head into 32 rows, C zero-padded to Cp (a multiple of 16);
+// scale (3 * heads,) fp32: the multipliers of q, k and v after the unit
+// norm (q's logit scale, then ones); ws: B * windows * heads * 3 * N * 32
+// bf16.
+extern "C" int grlir_window_half_large_mma(const void* x, const void* wt, const float* bp,
+                                           const float* scale, const void* bias,
+                                           const int* bands, void* ws, void* y, int B, int H,
+                                           int W, int C, int Cw, int heads, int wh, int ww,
+                                           int shift, int Cp, void* stream) {
+  return grlir::window_half_large_mma(x, wt, bp, scale, bias, bands, ws, y, B, H, W, C, Cw,
+                                      heads, wh, ww, shift, Cp,
+                                      static_cast<cudaStream_t>(stream));
 }

@@ -11,9 +11,10 @@ hand-written in CUDA with a plain PyTorch version beside it:
   stripe, streamed bias (B4)  csrc/stripe_half_large.cu  stripe_a2w_large_ref,
                                                          stripe_w2a_large_ref
 
-B4 takes one of two routes by x's type, chosen before any launch: bf16 on
-tensor cores (csrc/stripe_attn_mma.cuh), fp32 on CUDA cores; each wrapper
-counts its launches by route in `route_launches`.
+B2, B3 and B4 take one of two routes by x's type, chosen before any
+launch: bf16 on tensor cores (csrc/stripe_attn_mma.cuh), fp32 on CUDA
+cores; each of their wrappers counts its launches by route in
+`route_launches`.  B1 runs on CUDA cores for both types.
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
@@ -295,7 +296,8 @@ def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
 
 window_half.launches = 0
 
-# head dims the large kernels take (their tiles hold 32 columns)
+# head dims the large kernels and the tensor-core routes take (their tiles
+# and workspace rows hold 32 columns)
 _LARGE_MAX_D = 32
 
 
@@ -309,9 +311,10 @@ def _check_large_d(name: str, d: int) -> None:
 def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
                       bands=None, shift: int = 0,
                       kernels: bool = True) -> torch.Tensor:
-    """Large-window half (B3): the CUDA kernel of
-    `csrc/window_half_large.cu` for a CUDA x, `window_half_large_ref` for a
-    CPU x or when kernels=False.  Arguments as in `window_half_ref`."""
+    """Large-window half (B3): the CUDA kernels of
+    `csrc/window_half_large.cu` for a CUDA x (tensor cores for bf16, CUDA
+    cores for fp32), `window_half_large_ref` for a CPU x or when
+    kernels=False.  Arguments as in `window_half_ref`."""
     args = (x, wqkv, bqkv, logit_scale, bias, window, bands, shift)
     if not kernels:
         return window_half_large_ref(*args)
@@ -327,19 +330,31 @@ def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
         x, wqkv, bqkv, [logit_scale], [bias], [bands],
         bias_dtype=torch.bfloat16)
     nW = (H // wh) * (W // ww)
-    # q, k, v of every window and head, unit-normed and rounded to x's type
-    ws = torch.empty((B * nW, h, 3, N, d), dtype=x.dtype, device=x.device)
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
-    err = cuda_build.library().grlir_window_half_large(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
-        _ptr(ws), _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift),
-        int(x.dtype == torch.bfloat16), _stream(x))
+    geom = (B, H, W, C, Cw, h, wh, ww, int(shift))
+    lib = cuda_build.library()
+    # q (unit-normed, times the scale), k (unit-normed) and v of every
+    # window and head, rounded to x's type: in rows of 32 for bf16
+    if x.dtype == torch.bfloat16:
+        wt, bp = _pack_w(w, b, 0, 3, h)
+        sp = _part_scales(h, s, None, None)
+        ws = torch.empty((B * nW, h, 3, N, _LARGE_MAX_D), dtype=x.dtype,
+                         device=x.device)
+        err = lib.grlir_window_half_large_mma(
+            _ptr(x), _ptr(wt), _ptr(bp), _ptr(sp), _ptr(bias), _ptr(bands),
+            _ptr(ws), _ptr(y), *geom, wt.shape[1], _stream(x))
+    else:
+        ws = torch.empty((B * nW, h, 3, N, d), dtype=x.dtype, device=x.device)
+        err = lib.grlir_window_half_large(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
+            _ptr(ws), _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "window_half_large", f"window {window} at d={d}")
-    window_half_large.launches += 1
+    _count_route(window_half_large, x)
     return y
 
 
 window_half_large.launches = 0
+window_half_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
 # ----------------------------------------------------------------- stripes
@@ -489,10 +504,12 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
                 bias_w2a, stripe: Size2, df: int, bands=None, bands_a=None,
                 shift: Size2 = (0, 0), kernels: bool = True) -> torch.Tensor:
     """Anchored-stripe half, routed as the TPU routes it: stripes whose
-    biases fit the resident budget to B2, larger ones to the two B4 steps
-    (`stripe_a2w_large`, then `stripe_w2a_large`).  Each launches its CUDA
-    kernel for a CUDA x and runs its plain version for a CPU x or when
-    kernels=False.  Arguments as in `stripe_half_ref`."""
+    biases fit the resident budget to B2 (the kernels of
+    `csrc/stripe_half.cu`: tensor cores for bf16, CUDA cores for fp32),
+    larger ones to the two B4 steps (`stripe_a2w_large`, then
+    `stripe_w2a_large`).  Each launches its CUDA kernels for a CUDA x and
+    runs its plain version for a CPU x or when kernels=False.  Arguments as
+    in `stripe_half_ref`."""
     B, H, W, C = x.shape
     h = logit_scale1.shape[0]
     route = stripe_route((H, W), stripe, df, h)
@@ -515,7 +532,7 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
     if not x.is_cuda:
         return stripe_half_ref(*args)
     sh, sw = stripe
-    B, H, W, C, Cs, h, N1, N2, _ = _check_stripe(
+    B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
         "stripe_half", x, anchor, wqkv, logit_scale1, stripe, df, bands,
         bands_a, bias_a2w, bias_w2a)
     x, w, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
@@ -523,23 +540,38 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
         [bands, bands_a])
     anchor = anchor.to(x.dtype).contiguous()
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
-    err = cuda_build.library().grlir_stripe_half(
-        _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2), _ptr(b1),
-        _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(y), B, H, W, C, Cs, h, sh,
-        sw, df, int(shift[0]), int(shift[1]), int(x.dtype == torch.bfloat16),
-        _stream(x))
+    geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
+    lib = cuda_build.library()
+    if x.dtype == torch.bfloat16:
+        _check_large_d("stripe_half", Cs // h)
+        # q (unit-normed, times s2), k (unit-normed, times s1) and v of
+        # every stripe, in rows of 32
+        wt, bp = _pack_w(w, b, 0, 3, h)
+        sp = _part_scales(h, s2, s1, None)
+        ws = torch.empty((B * nW, h, 3, N1, _LARGE_MAX_D), dtype=x.dtype,
+                         device=x.device)
+        err = lib.grlir_stripe_half_mma(
+            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(sp), _ptr(b1),
+            _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws), _ptr(y), *geom,
+            wt.shape[1], _stream(x))
+    else:
+        err = lib.grlir_stripe_half(
+            _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2),
+            _ptr(b1), _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(y), *geom,
+            _stream(x))
     cuda_build.check(err, "stripe_half", f"stripe {stripe}/df {df} at "
                      f"d={Cs // h}")
-    stripe_half.launches += 1
+    _count_route(stripe_half, x)
     return y
 
 
 stripe_half.launches = 0
+stripe_half.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
 def _pack_w(w, b, p0: int, nparts: int, num_heads: int):
     """Parts p0..p0+nparts (q, k, v = 0, 1, 2) of w (C, 3Cs) and b (3Cs,)
-    as B4's tensor-core projection takes them: w transposed, each head's d
+    as the tensor-core projection takes them: w transposed, each head's d
     columns zero-padded to 32 rows and C to Cp, a multiple of 16, so that
     every row is 16-byte aligned: (nparts*h*32, Cp) bf16, and b padded the
     same way: (nparts*h*32,) fp32."""
@@ -550,12 +582,24 @@ def _pack_w(w, b, p0: int, nparts: int, num_heads: int):
     wt = F.pad(wt, (0, -C % 16, 0, _LARGE_MAX_D - d))
     bp = F.pad(b[cols].float().reshape(nparts, num_heads, d),
                (0, _LARGE_MAX_D - d))
-    return wt.reshape(-1, wt.shape[-1]), bp.reshape(-1)
+    # contiguous: with d = 32 and C % 16 == 0 nothing is padded, and wt
+    # would stay a transposed view
+    return (wt.reshape(-1, wt.shape[-1]).contiguous(),
+            bp.reshape(-1).contiguous())
+
+
+def _part_scales(num_heads: int, *scales) -> torch.Tensor:
+    """The tensor-core projection's multipliers after the unit norm, one
+    (h,) scale or None (ones) a part: (nparts*h,) fp32.  The TPU folds a
+    logit scale into q (B2's s2, B3's s) and k (B2's s1) before rounding."""
+    like = next(t for t in scales if t is not None)
+    return torch.cat([like.new_ones(num_heads) if t is None else t
+                      for t in scales]).float().contiguous()
 
 
 def _count_route(fn, x: torch.Tensor) -> None:
-    """One launch of a B4 step on the route x's type takes: bf16 on tensor
-    cores, fp32 on CUDA cores."""
+    """One launch of B2, B3 or a B4 step on the route x's type takes: bf16
+    on tensor cores, fp32 on CUDA cores."""
     fn.launches += 1
     fn.route_launches[
         "tensor_core" if x.dtype == torch.bfloat16 else "cuda_core"] += 1
@@ -686,13 +730,17 @@ KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
 unrouted_halves = 0
 
 
+# the kernels with a tensor-core and a CUDA-core route
+ROUTED = (window_half_large, stripe_half, stripe_a2w_large, stripe_w2a_large)
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count, B4's counts by route, and
-    unrouted_halves, to 0."""
+    """Set every kernel's launch count, the counts by route of B2, B3 and
+    B4, and unrouted_halves, to 0."""
     global unrouted_halves
     for k in KERNELS:
         k.launches = 0
-    for k in (stripe_a2w_large, stripe_w2a_large):
+    for k in ROUTED:
         for route in k.route_launches:
             k.route_launches[route] = 0
     unrouted_halves = 0

@@ -1,14 +1,28 @@
-"""Device time of the streamed-bias stripe half (B4) by CUDA kernel.
+"""Device time of the tensor-core routes (B2, B3, B4) by CUDA kernel, and
+the device-busy share of the GRL-S forward.
 
     python3 -m grlir_torch.profile_b4
 
-Runs B4's two steps (`stripe_a2w_large`, then `stripe_w2a_large`) on the
-card in bf16, the served route, under `torch.profiler`, at GRL-base's eval
-shapes: x4 SR at 256^2 (stripes 64x64, df 2, one image) and its denoising
-tile (stripes 64x128, two images), 3 heads of d = 30, C = 180, stripes
-shifted by half with band ids; inputs random from seed 0.  Prints, for each
-shape, every CUDA kernel's device time a step (a2w and w2a averaged), then
-the card's nvidia-smi name and power limit.  Needs a CUDA device.
+Runs on the card in bf16, the served route, under `torch.profiler`, with
+inputs random from seed 0:
+
+  B3  `window_half_large` at GRL-base x4 SR 256^2 (window 32, one image,
+      shifted by 16 with band ids), 3 heads of d = 30, C = 180;
+  B4  its two steps (`stripe_a2w_large`, then `stripe_w2a_large`) at
+      GRL-base's eval shapes: x4 SR at 256^2 (stripes 64x64, df 2, one
+      image) and its denoising tile (stripes 64x128, two images), stripes
+      shifted by half with band ids;
+  B2  `stripe_half` at GRL-S x4 256^2 (vertical stripes 64x8, df 4,
+      shifted with band ids), 2 heads of d = 32, C = 128;
+  GRL-S x4 256^2 bs1 forward (engine v3, random weights from seed 0): the
+      device-busy share, the CUDA kernel time of profiled forwards over the
+      wall time of as many forwards run without the profiler.
+
+Prints, for each, every CUDA kernel's device time a call (a B4 step: a2w
+and w2a averaged), then the card's nvidia-smi name and power limit.  Needs
+a CUDA device.  It imports only what the port had before B2 and B3 gained
+their tensor-core routes, so it runs against an older tree too
+(`PYTHONPATH=<tree> python3 <this file>`).
 """
 
 from __future__ import annotations
@@ -16,15 +30,17 @@ from __future__ import annotations
 import math
 import subprocess
 import sys
+import time
+from dataclasses import replace
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from grlir_torch.models import zoo
+from grlir_torch.models.grl import GRL, init_weights
 from grlir_torch.ops import block_attn as ba
 
-STEPS = 5
-SHAPES = (("GRL-base x4 SR 256^2", 1, (64, 64)),
-          ("GRL-base dn tile 2 x 256^2", 2, (64, 128)))
+CALLS = 5
 
 
 def device_us(evt) -> float:
@@ -33,6 +49,37 @@ def device_us(evt) -> float:
         if hasattr(evt, name):
             return getattr(evt, name)
     raise AttributeError("profiler event without a device time")
+
+
+def profiled(fn, calls: int):
+    """Run fn once, then `calls` times under the profiler: (CUDA kernel rows
+    (us, name, count), wall seconds of the profiled calls)."""
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    # kernels only: an operator's row repeats the time of the kernels it
+    # launched
+    rows = [(device_us(e), e.key, e.count) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return rows, wall
+
+
+def report(label: str, fn, per: int, unit: str) -> None:
+    """Print the device time a `unit` (`per` of them a call of fn) by
+    kernel."""
+    rows, _ = profiled(fn, CALLS)
+    total = sum(t for t, _, _ in rows)
+    print(f"[profile_b4] {label}: {total / (per * CALLS) / 1e3:.4f} ms of device time a "
+          f"{unit} ({CALLS * per} {unit}s)")
+    for t, key, count in sorted(rows, reverse=True):
+        print(f"[profile_b4]   {t / (per * CALLS) / 1e3:.4f} ms a {unit}  {count:4d} calls  "
+              f"{key[:90]}")
 
 
 def main() -> int:
@@ -45,10 +92,18 @@ def main() -> int:
     def rnd(*shape, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dev)
 
+    # GRL-base: B3 and B4
     C, Cs, heads, df, hw = 180, 90, 3, 2, 256
     w, b = rnd(C, 3 * Cs, std=0.02), rnd(3 * Cs, std=0.02)
     ls = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(heads, 1, 1)
-    for label, batch, stripe in SHAPES:
+    x = rnd(1, hw, hw, C).bfloat16()
+    bias = 16 * torch.sigmoid(rnd(heads, 1024, 1024))
+    bands = torch.randint(0, 3, (64, 1024), generator=g, dtype=torch.int32).to(dev)
+    report("B3 window_half_large, GRL-base x4 SR 256^2 (window 32, shift 16)",
+           lambda: ba.window_half_large(x, w, b, ls, bias, (32, 32), bands=bands, shift=16),
+           1, "call")
+    for label, batch, stripe in (("GRL-base x4 SR 256^2", 1, (64, 64)),
+                                 ("GRL-base dn tile 2 x 256^2", 2, (64, 128))):
         n1 = stripe[0] * stripe[1]
         n2 = n1 // (df * df)
         nw = (hw // stripe[0]) * (hw // stripe[1])
@@ -64,23 +119,47 @@ def main() -> int:
             x1 = ba.stripe_a2w_large(x, anchor, w, b, ls, b1, stripe, df, **kw)
             return ba.stripe_w2a_large(x, anchor, x1, w, b, ls, b2, stripe, df, **kw)
 
-        with torch.no_grad():
-            steps()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(STEPS):
-                    steps()
-                torch.cuda.synchronize()
-        # kernels only: an operator's row repeats the time of the kernels it
-        # launched
-        rows = [(device_us(e), e.key, e.count) for e in prof.key_averages()
-                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        total = sum(t for t, _, _ in rows)
-        print(f"[profile_b4] {label}: {total / (2 * STEPS) / 1e3:.4f} ms of device time a "
-              f"step (a2w and w2a averaged, {STEPS} of each)")
-        for t, key, count in sorted(rows, reverse=True):
-            print(f"[profile_b4]   {t / (2 * STEPS) / 1e3:.4f} ms a step  {count:4d} calls  "
-                  f"{key[:90]}")
+        report(f"B4 {label}", steps, 2, "step")
+
+    # GRL-S: B2 and the forward
+    cfg = zoo.GRL_SMALL
+    C, heads, df = cfg.embed_dim, cfg.num_heads_stripe[0], cfg.anchor_window_down_factor
+    Cs, stripe = C // 2, (64, 8)
+    n1, n2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
+    nw = (hw // stripe[0]) * (hw // stripe[1])
+    w, b = rnd(C, 3 * Cs, std=0.02), rnd(3 * Cs, std=0.02)
+    ls1 = torch.tensor([math.log(10.0), 5.0], device=dev).reshape(heads, 1, 1)
+    ls2 = torch.tensor([math.log(12.0), 4.0], device=dev).reshape(heads, 1, 1)
+    x = rnd(1, hw, hw, C).bfloat16()
+    anchor = rnd(1, hw // df, hw // df, Cs).bfloat16()
+    b1, b2 = 16 * torch.sigmoid(rnd(heads, n2, n1)), 16 * torch.sigmoid(rnd(heads, n1, n2))
+    bands = torch.randint(0, 3, (nw, n1), generator=g, dtype=torch.int32).to(dev)
+    bands_a = torch.randint(0, 3, (nw, n2), generator=g, dtype=torch.int32).to(dev)
+    report("B2 stripe_half, GRL-S x4 256^2 (stripes 64x8, shift (32, 4))",
+           lambda: ba.stripe_half(x, anchor, w, b, ls1, ls2, b1, b2, stripe, df, bands=bands,
+                                  bands_a=bands_a, shift=(32, 4)), 1, "call")
+    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
+                         torch.Generator().manual_seed(0)).eval().to(dev)
+    lr = torch.rand(1, hw, hw, 3, generator=g).to(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            model(lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            model(lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, wall_prof = profiled(lambda: model(lr), CALLS)
+    busy = sum(t for t, _, _ in rows) / 1e6
+    print(f"[profile_b4] GRL-S x4 {hw}^2 bs1 bf16 forward, engine v3: "
+          f"{busy / CALLS * 1e3:.3f} ms of CUDA kernel time (profiled) and "
+          f"{wall / CALLS * 1e3:.3f} ms of wall time (not profiled; {wall_prof / CALLS * 1e3:.3f} "
+          f"profiled) a forward, {CALLS} forwards each: device busy {100 * busy / wall:.1f}% "
+          f"({100 * busy / wall_prof:.1f}% of the profiled wall), "
+          f"{sum(c for _, _, c in rows) // CALLS} kernels a forward")
+    for t, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"[profile_b4]   {t / CALLS / 1e3:.4f} ms a forward  {count:5d} calls  {key[:90]}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -361,3 +361,119 @@ def test_large_routes_round_as_their_tpu_kernels():
     small = tba.window_half_ref(x, w, bq, ls1, bias, LW)
     rounded = tba.window_half_ref(x, w, bq, ls1, bias.bfloat16().float(), LW)
     assert not torch.equal(large, small) and torch.equal(large, rounded)
+
+
+# bf16 x (and anchor), as the served paths run B2 and B3 on tensor cores:
+# the plain versions round where the TPU kernels round (the logit scale
+# folded into q, and k for a2w, before rounding; exp(s - max) rounded, the
+# 1/sum applied after the product; B3's bias in bf16, B2's fp32; B2's x1 in
+# bf16).  Tolerance: interpret mode and PyTorch on the CPU may flip a bf16
+# rounding of a projection, an exp or x1, which moves y by about one bf16
+# ulp; 8e-3 is two ulps at |y| in [0.5, 1) and one at [1, 2), where the
+# largest outputs lie (|y| < 2 here).
+def _bf16_pair(a):
+    """A float32 array as bf16 for both packages: (torch, jax)."""
+    t = torch.from_numpy(a).bfloat16()
+    return t, _j(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _assert_bf16_close(got, want):
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=8e-3, rtol=8e-3)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_half_large_ref_matches_pallas_bf16(data, shifted):
+    """B3's plain version in bf16 against the q-tiled branch of the Pallas
+    window kernel (interpret mode): window 32, with band ids when shifted."""
+    rng = np.random.default_rng(15)
+    bias = torch.from_numpy(
+        (rng.standard_normal((HEADS, LN, LN)) * 0.5).astype(np.float32)
+    ).to(torch.bfloat16).float().numpy()
+    bands = rng.integers(0, 3, (1, LN)).astype(np.int32) if shifted else None
+    shift = LW[0] // 2 if shifted else 0
+    xt, xj = _bf16_pair(data["x"])
+    rest = (data["wqkv"], data["bqkv"], data["ls"], bias)
+    want = jba.fused_window_half(xj, *map(_j, rest), LW, bands=_j(bands),
+                                 shift=shift, interpret=True)
+    got = tba.window_half_large_ref(xt, *map(_t, rest), LW, bands=_t(bands),
+                                    shift=shift)
+    _assert_bf16_close(got, want)
+    routed = tba.window_half(xt, *map(_t, rest), LW, bands=_t(bands),
+                             shift=shift)
+    assert torch.equal(routed, got)
+
+
+@pytest.mark.parametrize("stripe", [(8, 16), (16, 8)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_half_ref_matches_pallas_bf16(data, stripe, shifted):
+    """B2's plain version in bf16 against the resident-bias Pallas stripe
+    kernel (interpret mode), horizontal and vertical stripes.  The logit
+    scales are the init's (log 10 and log 12, below the clamp): B2 runs two
+    attentions in a row, and at the fixture's clamped scale of 100 one
+    flipped bf16 rounding of q or k moves a whole token's output by several
+    ulps, between grlir's Pallas kernel and its own XLA twin of it
+    (`fused_stripe_half(..., ref=True)`) too; the fp32 test above covers
+    the clamp."""
+    scales = {"ls": np.full((HEADS, 1, 1), math.log(10.0), np.float32),
+              "ls2": np.full((HEADS, 1, 1), math.log(12.0), np.float32)}
+    args, bands, bands_a = _stripe_args({**data, **scales}, stripe, shifted,
+                                        seed=16)
+    assert tba.stripe_route((H, W), stripe, DF, HEADS) == "resident"
+    shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+    (xt, xj), (at, aj) = _bf16_pair(args[0]), _bf16_pair(args[1])
+    want = jba.fused_stripe_half(
+        xj, aj, *map(_j, args[2:]), stripe, DF, bands=_j(bands),
+        bands_a=_j(bands_a), shift=shift, interpret=True)
+    got = tba.stripe_half_ref(xt, at, *map(_t, args[2:]), stripe, DF,
+                              bands=_t(bands), bands_a=_t(bands_a), shift=shift)
+    _assert_bf16_close(got, want)
+    routed = tba.stripe_half(xt, at, *map(_t, args[2:]), stripe, DF,
+                             bands=_t(bands), bands_a=_t(bands_a), shift=shift)
+    assert torch.equal(routed, got)
+
+
+# (C, h, d): GRL-base's width, and GRL-S's, where nothing is padded
+@pytest.mark.parametrize("C,h,d", [(180, 3, 30), (128, 2, 32)])
+def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
+    """The tensor-core route's packing with its scales (B3: the logit scale
+    on q; B2: s2 on q, s1 on k): the packed w times x plus the packed b,
+    unit-normed over each head's 32 columns for q and k, times the part's
+    scale and rounded to bf16, is bf16(unit(x w + b) s) per head, as the
+    plain versions compute it; v is the unscaled projection.  Tolerance:
+    one bf16 ulp, for the two summation orders of the products."""
+    rng = np.random.default_rng(17)
+    w = torch.from_numpy(rng.standard_normal((C, 3 * h * d)).astype(np.float32) * 0.05)
+    b = torch.from_numpy(rng.standard_normal(3 * h * d).astype(np.float32) * 0.05)
+    x = torch.from_numpy(rng.standard_normal((9, C)).astype(np.float32)).bfloat16()
+    s1, s2 = (tba._scale(torch.from_numpy(rng.uniform(1, 5, (h, 1, 1)).astype(np.float32)))
+              for _ in range(2))
+    q, k, v = (x.float() @ w.bfloat16().float() + b).reshape(9, 3, h, d).unbind(1)
+    wt, bp = tba._pack_w(w.bfloat16(), b, 0, 3, h)
+    assert wt.is_contiguous() and bp.is_contiguous()
+    proj = (x.float() @ wt[:, :C].float().t() + bp).reshape(9, 3, h, 32)
+    for scales, want in (((s1, None, None), (tba._unit(q) * s1[:, None], tba._unit(k), v)),
+                         ((s2, s1, None), (tba._unit(q) * s2[:, None],
+                                           tba._unit(k) * s1[:, None], v))):
+        sp = tba._part_scales(h, *scales)
+        assert sp.dtype == torch.float32 and tuple(sp.shape) == (3 * h,)
+        got = torch.cat([tba._unit(proj[:, :2]), proj[:, 2:]], 1) * sp.reshape(3, h, 1)
+        for p in range(3):
+            torch.testing.assert_close(got[:, p, :, :d].bfloat16().float(),
+                                       want[p].bfloat16().float(), atol=0,
+                                       rtol=2 ** -7)
+        assert not got[..., d:].any()
+
+
+def test_reset_launches_clears_the_routes():
+    """reset_launches sets the counts by route of B2, B3 and B4 to 0, as
+    chip_smoke.py reads them just after a run."""
+    assert tba.window_half_large in tba.ROUTED and tba.stripe_half in tba.ROUTED
+    for k in tba.ROUTED:
+        k.route_launches["tensor_core"] += 3
+        k.route_launches["cuda_core"] += 1
+    tba.reset_launches()
+    assert all(k.route_launches == {"tensor_core": 0, "cuda_core": 0}
+               for k in tba.ROUTED)

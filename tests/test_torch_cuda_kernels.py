@@ -11,10 +11,11 @@ GRL-S's: small and large windows, ragged stripe tiles (N1 not a multiple of
 three heads of d = 30 on every route: the small-window (B1) and
 resident-stripe (B2) kernels at its deployed window 8 / df 4, the
 large-window (B3) and streamed-bias stripe (B4) kernels at its eval
-geometry (window 32, stripes 64x64 and 64x128, df 2), B4 also at GRL-base's
-width (C = 180), on the ragged V stripes of the 1080p repair and on an odd
-geometry, with each launch counted on its route (bf16 on tensor cores, fp32
-on CUDA cores).  The fused engines' kernels run at GRL-S's and GRL-base's
+geometry (window 32, stripes 64x64 and 64x128, df 2), B3 and B4 also at
+GRL-base's width (C = 180), B4 on the ragged V stripes of the 1080p repair
+and on an odd geometry, B2 at GRL-S's and GRL-base's widths in both stripe
+directions and at C = 90 (x rows not 8-byte aligned); B2, B3 and B4 count
+each launch on its route (bf16 on tensor cores, fp32 on CUDA cores).  The fused engines' kernels run at GRL-S's and GRL-base's
 shapes and at ragged ones: B5 (`flash_rect_attention`), B6
 (`fused_window_attention_qkv`), B7a (`fused_cosine_attention`, token-major
 and d-major operands) and B7b (`fused_cosine_attention_packed`, the same
@@ -135,55 +136,65 @@ BC, BH, BD = 64, 3, 30
 BCH = BH * BD
 
 
-def _base_weights(rng, dev, c=BC):
+def _base_weights(rng, dev, c=BC, heads=BH, d=BD):
     # w at std 0.05 * sqrt(64 / C): projections at the scale of C = 64's for
     # any width, so |y| < 1, where BF16_MAX_ERR is a few bf16 ulps
-    return (_rand(rng, c, 3 * BCH, std=0.05 * math.sqrt(BC / c)).to(dev),
-            _rand(rng, 3 * BCH, std=0.05).to(dev),
-            torch.tensor([math.log(10.0), 5.0, 3.0]).reshape(BH, 1, 1).to(dev),
-            torch.tensor([math.log(12.0), 4.0, 2.5]).reshape(BH, 1, 1).to(dev))
+    return (_rand(rng, c, 3 * heads * d, std=0.05 * math.sqrt(BC / c)).to(dev),
+            _rand(rng, 3 * heads * d, std=0.05).to(dev),
+            torch.tensor([math.log(10.0), 5.0, 3.0][:heads]).reshape(heads, 1, 1).to(dev),
+            torch.tensor([math.log(12.0), 4.0, 2.5][:heads]).reshape(heads, 1, 1).to(dev))
 
 
-def _run_window(dev, dtype, window, shift, H, W, launches_of):
+def _routes(fns):
+    """The launches by route of the kernels among fns that have two routes
+    (B2, B3, B4)."""
+    return [dict(f.route_launches) for f in fns if f in tba.ROUTED]
+
+
+def _expect_routes(fns, routes, dtype):
+    """routes with one more launch of each routed kernel on dtype's route:
+    tensor cores for bf16, CUDA cores for fp32."""
+    for r in routes:
+        r["tensor_core" if dtype == torch.bfloat16 else "cuda_core"] += 1
+    assert _routes(fns) == routes
+
+
+def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC):
     rng = np.random.default_rng(6)
     n = window[0] * window[1]
-    x = _rand(rng, B, H, W, BC).to(dev, dtype)
-    w, b, ls, _ = _base_weights(rng, dev)
+    x = _rand(rng, B, H, W, c).to(dev, dtype)
+    w, b, ls, _ = _base_weights(rng, dev, c)
     bias = 16 * torch.sigmoid(_rand(rng, BH, n, n)).to(dev)
     bands = _bands(rng, (H // window[0]) * (W // window[1]), n, dev) if shift else None
-    before = launches_of.launches
+    before, routes = launches_of.launches, _routes([launches_of])
     with torch.no_grad():
         got = tba.window_half(x, w, b, ls, bias, window, bands, shift)
         want = tba.window_half(x, w, b, ls, bias, window, bands, shift, kernels=False)
     torch.cuda.synchronize()
     assert launches_of.launches == before + 1
+    _expect_routes([launches_of], routes, dtype)
     _assert_close(got, want, dtype)
 
 
-def _routes():
-    """B4's launches by route, of both steps."""
-    return [dict(f.route_launches) for f in (tba.stripe_a2w_large, tba.stripe_w2a_large)]
-
-
 def _run_stripe(dev, dtype, stripe, df, shift, H, W, launch_fns, c=BC, batch=B,
-                direct=False):
+                direct=False, heads=BH, d=BD):
     """The stripe half (or, direct, B4's two steps called one after the
-    other, whatever the route) against its plain version; every B4 launch
-    must take the route of dtype: tensor cores for bf16, CUDA cores for
-    fp32."""
+    other, whatever the route) against its plain version; every B2 or B4
+    launch must take the route of dtype: tensor cores for bf16, CUDA cores
+    for fp32."""
     rng = np.random.default_rng(7)
     sh, sw = stripe
     n1, n2 = sh * sw, (sh // df) * (sw // df)
-    w, b, ls1, ls2 = _base_weights(rng, dev, c)
+    w, b, ls1, ls2 = _base_weights(rng, dev, c, heads, d)
     args = [_rand(rng, batch, H, W, c).to(dev, dtype),
-            _rand(rng, batch, H // df, W // df, BCH).to(dev, dtype), w, b, ls1, ls2,
-            16 * torch.sigmoid(_rand(rng, BH, n2, n1)).to(dev),
-            16 * torch.sigmoid(_rand(rng, BH, n1, n2)).to(dev)]
+            _rand(rng, batch, H // df, W // df, heads * d).to(dev, dtype), w, b, ls1, ls2,
+            16 * torch.sigmoid(_rand(rng, heads, n2, n1)).to(dev),
+            16 * torch.sigmoid(_rand(rng, heads, n1, n2)).to(dev)]
     nw = (H // sh) * (W // sw)
     shifted = shift != (0, 0)
     kw = dict(bands=_bands(rng, nw, n1, dev) if shifted else None,
               bands_a=_bands(rng, nw, n2, dev) if shifted else None, shift=shift)
-    before, routes = [f.launches for f in launch_fns], _routes()
+    before, routes = [f.launches for f in launch_fns], _routes(launch_fns)
 
     def half(kernels):
         if not direct:
@@ -197,11 +208,7 @@ def _run_stripe(dev, dtype, stripe, df, shift, H, W, launch_fns, c=BC, batch=B,
         got, want = half(True), half(False)
     torch.cuda.synchronize()
     assert [f.launches for f in launch_fns] == [n + 1 for n in before]
-    if tba.stripe_a2w_large in launch_fns:
-        route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
-        for r in routes:
-            r[route] += 1
-        assert _routes() == routes
+    _expect_routes(launch_fns, routes, dtype)
     _assert_close(got, want, dtype, ulp_gate=tba.stripe_a2w_large in launch_fns)
 
 
@@ -223,6 +230,33 @@ def test_window_large_kernel_matches_plain(cuda, dtype, shift):
     """B3: window 32 (N = 1024), shifted and unshifted."""
     assert tba.window_route((64, 96), (32, 32), BH) == "large"
     _run_window(cuda, dtype, (32, 32), shift, 64, 96, tba.window_half_large)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 16])
+def test_window_large_kernel_at_base_width(cuda, dtype, shift):
+    """B3 at GRL-base's width (C = 180, 3 heads of d = 30: x rows of 360 B,
+    packed w rows padded to 192), window 32, batch 2, shifted with band ids
+    and unshifted."""
+    _run_window(cuda, dtype, (32, 32), shift, 64, 64, tba.window_half_large, c=180)
+
+
+# (heads, d, C): GRL-S's stripe half (C = 128), GRL-base's (C = 180), and
+# GRL-base's heads at C = 90, whose x rows (180 B) take the projection's
+# element loads
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d,c", [(2, 32, 128), (3, 30, 180), (3, 30, 90)])
+@pytest.mark.parametrize("stripe", [(8, 64), (64, 8)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_resident_kernel_at_model_widths(cuda, dtype, heads, d, c, stripe, shifted):
+    """B2 at GRL-S's stripes (8x64 and 64x8 at df 4: N1 = 512, N2 = 32) on
+    128 x 128, shifted by half a stripe and unshifted."""
+    assert tba.stripe_route((128, 128), stripe, 4, heads) == "resident"
+    shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+    _run_stripe(cuda, dtype, stripe, 4, shift, 128, 128, [tba.stripe_half], c=c,
+                heads=heads, d=d)
 
 
 @pytest.mark.cuda
