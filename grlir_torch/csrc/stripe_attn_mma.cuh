@@ -136,18 +136,18 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
 // times the packed wt plus bp, unit-normed for the parts set in norm_mask,
-// times scale[p * heads + head] when scale is given (after the norm, as the
-// TPU folds its logit scales), rounded to bf16.  wt: (nparts * heads * kDP,
-// Cp) bf16, row (p * heads + head) * kDP + e holding column e of that
-// part's head (zero for e >= d, and past C); bp: (nparts * heads * kDP,)
-// fp32, zero past d.
+// times scale0[head] (part 0) or scale1[head] (part 1) where given (after
+// the norm, as the TPU folds its logit scales), rounded to bf16.  wt:
+// (nparts * heads * kDP, Cp) bf16, row (p * heads + head) * kDP + e holding
+// column e of that part's head (zero for e >= d, and past C); bp: (nparts *
+// heads * kDP,) fp32, zero past d.
 // Grid (regions * B, ceil(N / 64)).  Warp w takes tokens 16w..16w+15 of the
 // tile and one head's 32 columns at a time.
 __global__ void __launch_bounds__(kMmaThreads)
 mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                   const float* __restrict__ bp, const float* __restrict__ scale,
-                   bf16* __restrict__ ws, Regions reg, int C, int Cp, int heads, int nparts,
-                   int norm_mask) {
+                   const float* __restrict__ bp, const float* __restrict__ scale0,
+                   const float* __restrict__ scale1, bf16* __restrict__ ws, Regions reg, int C,
+                   int Cp, int heads, int nparts, int norm_mask) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int ld = Cp + 8, ncols = nparts * heads * kDP;
   const int N = reg.rh * reg.rw, g = blockIdx.x, t0 = blockIdx.y * kMmaRows;
@@ -226,8 +226,9 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
         }
       }
     }
+    const float* scale = p == 0 ? scale0 : p == 1 ? scale1 : nullptr;
     if (scale) {
-      const float sc = scale[ph];
+      const float sc = scale[hh];
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -518,10 +519,11 @@ int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
 }
 
 // Launch mma_project_kernel; returns 0, -1 (shared memory) or a cudaError_t.
-// scale: (nparts * heads,) fp32 multipliers after the norm, or null.
-int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale,
-                       void* ws, const Regions& reg, int B, int C, int Cp, int heads,
-                       int nparts, int norm_mask, cudaStream_t stream) {
+// scale0, scale1: (heads,) fp32 multipliers of parts 0 and 1 after the
+// norm, or null.
+int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale0,
+                       const float* scale1, void* ws, const Regions& reg, int B, int C, int Cp,
+                       int heads, int nparts, int norm_mask, cudaStream_t stream) {
   const size_t smem =
       kMmaRows * 4 + sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
   const int err = set_smem(mma_project_kernel, smem);
@@ -529,8 +531,8 @@ int launch_mma_project(const void* x, const void* wt, const float* bp, const flo
   const int regions = (reg.H / reg.rh) * (reg.W / reg.rw), N = reg.rh * reg.rw;
   const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows);
   mma_project_kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, scale, static_cast<bf16*>(ws),
-      reg, C, Cp, heads, nparts, norm_mask);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, scale0, scale1,
+      static_cast<bf16*>(ws), reg, C, Cp, heads, nparts, norm_mask);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -545,7 +545,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
 // The bf16 route: the projection, then mma_stripe_resident_kernel.
 // Returns 0, -1 (d > 32 or shared memory) or a cudaError_t.
 int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, const float* bp,
-                           const float* scale, const float* b1, const float* b2,
+                           const float* s1, const float* s2, const float* b1, const float* b2,
                            const int* bands, const int* bands_a, void* ws, void* y, int B, int H,
                            int W, int C, int Cs, int heads, int sh, int sw, int df, int shift_h,
                            int shift_w, int Cp, cudaStream_t stream) {
@@ -555,7 +555,7 @@ int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, co
   if (err) return err;
   // q (unit-normed, times s2), k (unit-normed, times s1), v
   const Regions reg{H, W, sh, sw, shift_h, shift_w};
-  err = launch_mma_project(x, wt, bp, scale, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+  err = launch_mma_project(x, wt, bp, s2, s1, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
   if (err) return err;
   const int groups = B * (H / sh) * (W / sw);
   const long long blocks = (long long)groups * heads;
@@ -586,18 +586,18 @@ extern "C" int grlir_stripe_half(const void* x, const void* anchor, const void* 
                                           shift_w, static_cast<cudaStream_t>(stream));
 }
 
-// bf16 on tensor cores.  x, anchor and y as for the fp32 entry in bf16; b1,
-// b2 fp32; wt (3 * heads * 32, Cp) bf16 and bp (3 * heads * 32,) fp32: w
-// and bqkv packed per head into 32 rows, C zero-padded to Cp (a multiple
-// of 16); scale (3 * heads,) fp32: the multipliers of q, k and v after the
-// unit norm (s2, s1, ones); ws: B * stripes * heads * 3 * N1 * 32 bf16.
+// bf16 on tensor cores.  x, anchor and y as for the fp32 entry in bf16; s1,
+// s2, b1, b2 as for the fp32 entry; wt (3 * heads * 32, Cp) bf16 and bp (3
+// * heads * 32,) fp32: w and bqkv packed per head into 32 rows, C
+// zero-padded to Cp (a multiple of 16); ws: B * stripes * heads * 3 * N1 *
+// 32 bf16.
 extern "C" int grlir_stripe_half_mma(const void* x, const void* anchor, const void* wt,
-                                     const float* bp, const float* scale, const float* b1,
-                                     const float* b2, const int* bands, const int* bands_a,
-                                     void* ws, void* y, int B, int H, int W, int C, int Cs,
-                                     int heads, int sh, int sw, int df, int shift_h,
-                                     int shift_w, int Cp, void* stream) {
-  return grlir::launch_stripe_half_mma(x, anchor, wt, bp, scale, b1, b2, bands, bands_a, ws, y,
-                                       B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w, Cp,
-                                       static_cast<cudaStream_t>(stream));
+                                     const float* bp, const float* s1, const float* s2,
+                                     const float* b1, const float* b2, const int* bands,
+                                     const int* bands_a, void* ws, void* y, int B, int H, int W,
+                                     int C, int Cs, int heads, int sh, int sw, int df,
+                                     int shift_h, int shift_w, int Cp, void* stream) {
+  return grlir::launch_stripe_half_mma(x, anchor, wt, bp, s1, s2, b1, b2, bands, bands_a, ws,
+                                       y, B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w,
+                                       Cp, static_cast<cudaStream_t>(stream));
 }

@@ -158,8 +158,8 @@ int a2w_mma(const void* x, const void* anchor, const void* wt, const float* bp,
   int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
   if (err) return err;
   // k (unit-normed) and v of every stripe: wt holds the k and v parts
-  err = launch_mma_project(x, wt, bp, nullptr, ws_kv, G.regions(), G.B, G.C, Cp, G.heads, 2,
-                           0b01, stream);
+  err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_kv, G.regions(), G.B, G.C, Cp,
+                           G.heads, 2, 0b01, stream);
   if (err) return err;
   const AttnArgs a =
       a2w_args(ws_an, ws_kv, sizeof(bf16), kDP, s1, bias, bands, bands_a, x1, G);
@@ -175,8 +175,8 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
   int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
   if (err) return err;
   // q (unit-normed) of every stripe: wt holds the q part
-  err = launch_mma_project(x, wt, bp, nullptr, ws_q, G.regions(), G.B, G.C, Cp, G.heads, 1, 0b1,
-                           stream);
+  err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_q, G.regions(), G.B, G.C, Cp,
+                           G.heads, 1, 0b1, stream);
   if (err) return err;
   err = launch_pad_rows(x1, ws_x1, (long long)G.B * G.stripes() * G.heads * G.N2(), d, stream);
   if (err) return err;

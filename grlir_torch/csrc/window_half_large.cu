@@ -88,7 +88,8 @@ int window_half_large_mma(const void* x, const void* wt, const float* bp, const 
   if (d > kDP) return -1;
   const Regions reg{H, W, wh, ww, shift, shift};
   // q (unit-normed, times the scale), k (unit-normed), v, in rows of 32
-  int err = launch_mma_project(x, wt, bp, scale, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+  int err =
+      launch_mma_project(x, wt, bp, scale, nullptr, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
   if (err) return err;
   const AttnArgs a = window_args(ws, sizeof(bf16), kDP, bias, bands, y, H, W, d, heads, wh, ww);
   return launch_mma_attend<true>(a, B * a.regions, stream);
@@ -114,9 +115,7 @@ extern "C" int grlir_window_half_large(const void* x, const void* w, const float
 // bf16 on tensor cores.  x, bias and y as for the fp32 entry in bf16; wt
 // (3 * heads * 32, Cp) bf16 and bp (3 * heads * 32,) fp32: w and bqkv
 // packed per head into 32 rows, C zero-padded to Cp (a multiple of 16);
-// scale (3 * heads,) fp32: the multipliers of q, k and v after the unit
-// norm (q's logit scale, then ones); ws: B * windows * heads * 3 * N * 32
-// bf16.
+// scale as for the fp32 entry; ws: B * windows * heads * 3 * N * 32 bf16.
 extern "C" int grlir_window_half_large_mma(const void* x, const void* wt, const float* bp,
                                            const float* scale, const void* bias,
                                            const int* bands, void* ws, void* y, int B, int H,

@@ -38,6 +38,7 @@ the caller un-rolls them.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Tuple
 
@@ -336,12 +337,11 @@ def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     # q (unit-normed, times the scale), k (unit-normed) and v of every
     # window and head, rounded to x's type: in rows of 32 for bf16
     if x.dtype == torch.bfloat16:
-        wt, bp = _pack_w(w, b, 0, 3, h)
-        sp = _part_scales(h, s, None, None)
+        wt, bp = _packed_w(wqkv, bqkv, 0, 3, h)
         ws = torch.empty((B * nW, h, 3, N, _LARGE_MAX_D), dtype=x.dtype,
                          device=x.device)
         err = lib.grlir_window_half_large_mma(
-            _ptr(x), _ptr(wt), _ptr(bp), _ptr(sp), _ptr(bias), _ptr(bands),
+            _ptr(x), _ptr(wt), _ptr(bp), _ptr(s), _ptr(bias), _ptr(bands),
             _ptr(ws), _ptr(y), *geom, wt.shape[1], _stream(x))
     else:
         ws = torch.empty((B * nW, h, 3, N, d), dtype=x.dtype, device=x.device)
@@ -546,14 +546,13 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
         _check_large_d("stripe_half", Cs // h)
         # q (unit-normed, times s2), k (unit-normed, times s1) and v of
         # every stripe, in rows of 32
-        wt, bp = _pack_w(w, b, 0, 3, h)
-        sp = _part_scales(h, s2, s1, None)
+        wt, bp = _packed_w(wqkv, bqkv, 0, 3, h)
         ws = torch.empty((B * nW, h, 3, N1, _LARGE_MAX_D), dtype=x.dtype,
                          device=x.device)
         err = lib.grlir_stripe_half_mma(
-            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(sp), _ptr(b1),
-            _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws), _ptr(y), *geom,
-            wt.shape[1], _stream(x))
+            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(s1), _ptr(s2),
+            _ptr(b1), _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws), _ptr(y),
+            *geom, wt.shape[1], _stream(x))
     else:
         err = lib.grlir_stripe_half(
             _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2),
@@ -588,13 +587,37 @@ def _pack_w(w, b, p0: int, nparts: int, num_heads: int):
             bp.reshape(-1).contiguous())
 
 
-def _part_scales(num_heads: int, *scales) -> torch.Tensor:
-    """The tensor-core projection's multipliers after the unit norm, one
-    (h,) scale or None (ones) a part: (nparts*h,) fp32.  The TPU folds a
-    logit scale into q (B2's s2, B3's s) and k (B2's s1) before rounding."""
-    like = next(t for t in scales if t is not None)
-    return torch.cat([like.new_ones(num_heads) if t is None else t
-                      for t in scales]).float().contiguous()
+# _pack_w's results by the operands they were packed from, most recent last.
+# The model passes views of its parameters, so its forwards pack nothing
+# after the first.  A key holds the operand's address, version (bumped by
+# every in-place update) and layout, and its entry holds the operand, so no
+# other tensor can take that address while the entry lives.
+_PACKED_MAX = 256
+_packed = collections.OrderedDict()
+
+
+def _operand_key(t: Optional[torch.Tensor]):
+    if t is None:
+        return None
+    return (t.data_ptr(), t._version, t.dtype, t.device, tuple(t.shape),
+            t.stride())
+
+
+def _packed_w(wqkv, bqkv, p0: int, nparts: int, num_heads: int):
+    """`_pack_w` of the caller's wqkv (C, 3Cs) and bqkv (3Cs,) or None,
+    packed once for every version of them."""
+    key = (_operand_key(wqkv), _operand_key(bqkv), p0, nparts, num_heads)
+    entry = _packed.get(key)
+    if entry is None:
+        b = (torch.zeros(wqkv.shape[1], device=wqkv.device) if bqkv is None
+             else bqkv)
+        entry = (wqkv, bqkv, *_pack_w(wqkv, b, p0, nparts, num_heads))
+        _packed[key] = entry
+        if len(_packed) > _PACKED_MAX:
+            _packed.popitem(last=False)
+    else:
+        _packed.move_to_end(key)
+    return entry[2], entry[3]
 
 
 def _count_route(fn, x: torch.Tensor) -> None:
@@ -636,7 +659,7 @@ def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
     if x.dtype == torch.bfloat16:
         # unit-normed anchors, then k (unit-normed) and v of every stripe,
         # in rows of 32
-        wt, bp = _pack_w(w, b, 1, 2, h)
+        wt, bp = _packed_w(wqkv, bqkv, 1, 2, h)
         ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
                             device=x.device)
         ws_kv = torch.empty((B * nW, h, 2, N1, _LARGE_MAX_D), dtype=x.dtype,
@@ -695,7 +718,7 @@ def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
     if x.dtype == torch.bfloat16:
         # unit-normed anchors, unit-normed q of every stripe and x1, in rows
         # of 32
-        wt, bp = _pack_w(w, b, 0, 1, h)
+        wt, bp = _packed_w(wqkv, bqkv, 0, 1, h)
         ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
                             device=x.device)
         ws_q = torch.empty((B * nW, h, 1, N1, _LARGE_MAX_D), dtype=x.dtype,

@@ -34,7 +34,7 @@ _COSINE = [_P] * 4 + [_L] * 16 + [_P] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
     "grlir_window_half": [_P] * 7 + [_I] * 10 + [_P],
     "grlir_stripe_half": [_P] * 11 + [_I] * 11 + [_P],
-    "grlir_stripe_half_mma": [_P] * 11 + [_I] * 12 + [_P],
+    "grlir_stripe_half_mma": [_P] * 12 + [_I] * 12 + [_P],
     "grlir_window_half_large": [_P] * 8 + [_I] * 9 + [_P],
     "grlir_window_half_large_mma": [_P] * 8 + [_I] * 10 + [_P],
     "grlir_stripe_a2w_large": [_P] * 11 + [_I] * 11 + [_P],

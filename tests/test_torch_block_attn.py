@@ -438,12 +438,12 @@ def test_stripe_half_ref_matches_pallas_bf16(data, stripe, shifted):
 # (C, h, d): GRL-base's width, and GRL-S's, where nothing is padded
 @pytest.mark.parametrize("C,h,d", [(180, 3, 30), (128, 2, 32)])
 def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
-    """The tensor-core route's packing with its scales (B3: the logit scale
+    """The tensor-core route's packing and its scales (B3: the logit scale
     on q; B2: s2 on q, s1 on k): the packed w times x plus the packed b,
-    unit-normed over each head's 32 columns for q and k, times the part's
-    scale and rounded to bf16, is bf16(unit(x w + b) s) per head, as the
-    plain versions compute it; v is the unscaled projection.  Tolerance:
-    one bf16 ulp, for the two summation orders of the products."""
+    unit-normed over each head's 32 columns for q and k, times the scale of
+    packed part 0 or 1 and rounded to bf16, is bf16(unit(x w + b) s) per
+    head, as the plain versions compute it; v is the unscaled projection.
+    Tolerance: one bf16 ulp, for the two summation orders of the products."""
     rng = np.random.default_rng(17)
     w = torch.from_numpy(rng.standard_normal((C, 3 * h * d)).astype(np.float32) * 0.05)
     b = torch.from_numpy(rng.standard_normal(3 * h * d).astype(np.float32) * 0.05)
@@ -454,17 +454,37 @@ def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
     wt, bp = tba._pack_w(w.bfloat16(), b, 0, 3, h)
     assert wt.is_contiguous() and bp.is_contiguous()
     proj = (x.float() @ wt[:, :C].float().t() + bp).reshape(9, 3, h, 32)
-    for scales, want in (((s1, None, None), (tba._unit(q) * s1[:, None], tba._unit(k), v)),
-                         ((s2, s1, None), (tba._unit(q) * s2[:, None],
-                                           tba._unit(k) * s1[:, None], v))):
-        sp = tba._part_scales(h, *scales)
-        assert sp.dtype == torch.float32 and tuple(sp.shape) == (3 * h,)
-        got = torch.cat([tba._unit(proj[:, :2]), proj[:, 2:]], 1) * sp.reshape(3, h, 1)
+    ones = torch.ones(h)
+    for (scale0, scale1), want in (((s1, ones), (tba._unit(q) * s1[:, None], tba._unit(k), v)),
+                                   ((s2, s1), (tba._unit(q) * s2[:, None],
+                                               tba._unit(k) * s1[:, None], v))):
+        got = torch.stack([tba._unit(proj[:, 0]) * scale0[:, None],
+                           tba._unit(proj[:, 1]) * scale1[:, None], proj[:, 2]], 1)
         for p in range(3):
             torch.testing.assert_close(got[:, p, :, :d].bfloat16().float(),
                                        want[p].bfloat16().float(), atol=0,
                                        rtol=2 ** -7)
         assert not got[..., d:].any()
+
+
+def test_packed_w_packs_each_version_once():
+    """The tensor-core routes pack w once for the views of one parameter
+    that every forward passes, again after an in-place update, and treat
+    bqkv None as zeros."""
+    w = torch.randn(64, 96).bfloat16()
+    b = torch.randn(96)
+    want = tba._pack_w(w, b, 0, 3, 2)
+    got = tba._packed_w(w.t().t(), b, 0, 3, 2)
+    assert all(torch.equal(g, t) for g, t in zip(got, want))
+    again = tba._packed_w(w[:, :], b, 0, 3, 2)
+    assert all(a is g for a, g in zip(again, got))
+    with torch.no_grad():
+        w.mul_(2)
+    fresh = tba._packed_w(w, b, 0, 3, 2)
+    assert torch.equal(fresh[0], tba._pack_w(w, b, 0, 3, 2)[0])
+    assert not torch.equal(fresh[0], got[0])
+    _, bp = tba._packed_w(w, None, 1, 2, 2)
+    assert not bp.any()
 
 
 def test_reset_launches_clears_the_routes():
