@@ -8,10 +8,10 @@
 // CUDA-core kernels (TF32 products would not hold fp32).
 //
 //   mma_project_kernel  64 tokens of a region a block, gathered through
-//                       Regions::pixel (the cyclic shift), times the
-//                       wrapper's packed w (per head zero-padded to 32
-//                       columns, C padded to a multiple of 16) on tensor
-//                       cores; fp32 bias, per-head unit norm, then a
+//                       Regions::pixel (the cyclic shift), times w (its
+//                       transpose in bf16, rows 16-byte aligned, each head
+//                       zero-padded to 32 columns in shared memory) on
+//                       tensor cores; fp32 bias, per-head unit norm, then a
 //                       per-part, per-head scale where the TPU folds the
 //                       logit scale into q or k before rounding (B2, B3);
 //                       bf16 rows of kDP = 32 (zeros past d) into a
@@ -64,10 +64,14 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 
 // Asynchronous copies global -> shared of 16, 8 or 4 bytes; with valid
 // false nothing is read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+// cp_async16_first reads the first `bytes` (0..16) and zero-fills the rest.
+__device__ __forceinline__ void cp_async16_first(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
+               "l"(src), "r"(bytes)
                : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  cp_async16_first(dst, src, valid ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
@@ -135,34 +139,42 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
-// times the packed wt plus bp, unit-normed for the parts set in norm_mask,
-// times scale0[head] (part 0) or scale1[head] (part 1) where given (after
-// the norm, as the TPU folds its logit scales), rounded to bf16.  wt:
-// (nparts * heads * kDP, Cp) bf16, row (p * heads + head) * kDP + e holding
-// column e of that part's head (zero for e >= d, and past C); bp: (nparts *
-// heads * kDP,) fp32, zero past d.
+// times w plus b, unit-normed for the parts set in norm_mask, times
+// scale0[head] (part 0) or scale1[head] (part 1) where given (after the
+// norm, as the TPU folds its logit scales), rounded to bf16; zeros past d.
+// wt: (nparts * heads * d, Cp) bf16, w transposed, row (p * heads + head) *
+// d + e holding column e of that part's head in its first C values (rows
+// Cp apart, Cp a multiple of 16; the rest is not read); bp: (nparts * heads
+// * d,) fp32 in the same order.
 // Grid (regions * B, ceil(N / 64)).  Warp w takes tokens 16w..16w+15 of the
 // tile and one head's 32 columns at a time.
 __global__ void __launch_bounds__(kMmaThreads)
 mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                    const float* __restrict__ bp, const float* __restrict__ scale0,
                    const float* __restrict__ scale1, bf16* __restrict__ ws, Regions reg, int C,
-                   int Cp, int heads, int nparts, int norm_mask) {
+                   int Cp, int heads, int d, int nparts, int norm_mask) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int ld = Cp + 8, ncols = nparts * heads * kDP;
   const int N = reg.rh * reg.rw, g = blockIdx.x, t0 = blockIdx.y * kMmaRows;
   const int nt = min(kMmaRows, N - t0);
   int* pix = reinterpret_cast<int*>(mma_smem);                  // [64]
-  bf16* xs = reinterpret_cast<bf16*>(mma_smem + kMmaRows * 4);  // [64][ld]
+  float* bsm = reinterpret_cast<float*>(pix + kMmaRows);        // [ncols]
+  bf16* xs = reinterpret_cast<bf16*>(bsm + ncols);              // [64][ld]
   bf16* wsm = xs + kMmaRows * ld;                               // [ncols][ld]
   const int tid = threadIdx.x;
 
   for (int i = tid; i < kMmaRows; i += kMmaThreads) pix[i] = i < nt ? reg.pixel(g, t0 + i) : 0;
+  // w and b: each head's d rows (values) into 32 of shared memory, zeros
+  // past d and past C
+  for (int r = tid; r < ncols; r += kMmaThreads)
+    bsm[r] = r % kDP < d ? bp[(r / kDP) * d + r % kDP] : 0.f;
   for (int i = tid; i < ncols * (Cp / 8); i += kMmaThreads) {
-    const int r = i / (Cp / 8), c = (i % (Cp / 8)) * 8;
-    cp_async16(wsm + r * ld + c, wt + (size_t)r * Cp + c, true);
+    const int r = i / (Cp / 8), c = (i % (Cp / 8)) * 8, e = r % kDP;
+    const int bytes = e < d ? 2 * max(0, min(8, C - c)) : 0;
+    cp_async16_first(wsm + r * ld + c, bytes ? wt + ((size_t)(r / kDP) * d + e) * Cp + c : wt,
+                     bytes);
   }
-  __syncthreads();  // pix
+  __syncthreads();  // pix, bsm
   // x rows (2C bytes, 8-byte aligned when C % 4 == 0): 8-byte copies, or
   // element loads; zeros past C and past the region's last token
   const bool vec = C % 4 == 0;
@@ -204,7 +216,7 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     }
     // fp32 bias, then the unit norm over the head's 32 columns: a row's
     // columns sit in the 4 lanes of a quad
-    const float* bb = bp + ph * kDP;
+    const float* bb = bsm + ph * kDP;
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -255,6 +267,121 @@ pad_rows_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, long long r
     const long long r = i / kDP;
     const int e = static_cast<int>(i % kDP);
     out[i] = e < d ? in[r * d + e] : __float2bfloat16(0.f);
+  }
+}
+
+// The two-pass softmax of the attention kernels, one warp's 16 rows
+// against a chunk of 64 keys, in the mma accumulator layout: s[j][e] is
+// row lane / 4 + 8 (e / 2) and key 8 j + 2 (lane % 4) + e % 2.  Pass 1
+// folds each chunk's logits into the rows' running max and sum, pass 2
+// recomputes them with the same sequence, bit-equal, and multiplies the
+// exps by v.  One copy serves every kernel, so the two passes cannot drift.
+
+// s = q . k^T for the warp's rows (A fragments qa) and the chunk's keys
+// (rows of kLdK in shared memory); tiles of keys past nk are skipped (0).
+__device__ __forceinline__ void chunk_qk(const unsigned (&qa)[2][4], const bf16* ks, int nk,
+                                         int lane, float (&s)[8][4]) {
+  const int mi = lane / 8;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if (j * 8 >= nk) continue;
+    unsigned b[4];
+    ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
+    mma_bf16(s[j], qa[0], b[0], b[1]);
+    mma_bf16(s[j], qa[1], b[2], b[3]);
+  }
+}
+
+// -100 where the key's band id (bk, in shared memory, 8-byte aligned; null:
+// no mask) differs from the row's (bq), and -inf for keys past nk.
+__device__ __forceinline__ void mask_logits(float (&s)[8][4], const int* bk, const int (&bq)[2],
+                                            int nk, int lane) {
+  const int qd = lane % 4;
+  if (bk) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int2 bk2 = *reinterpret_cast<const int2*>(bk + j * 8 + 2 * qd);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (((e & 1) ? bk2.y : bk2.x) != bq[e >> 1]) s[j][e] += -100.f;
+    }
+  }
+  if (nk < kMmaKeys) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (j * 8 + 2 * qd + (e & 1) >= nk) s[j][e] = -INFINITY;
+  }
+}
+
+// Pass 1: fold a chunk's logits into this thread's running max m and sum l
+// of its two rows.
+__device__ __forceinline__ void fold_rows(const float (&s)[8][4], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    const float m_new = fmaxf(m[r], mx);
+    if (m_new != -INFINITY) {
+      const float ml = m_new * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += ex2(fmaf(s[j][2 * r], kLog2e, -ml)) + ex2(fmaf(s[j][2 * r + 1], kLog2e, -ml));
+      l[r] = fmaf(l[r], ex2((m[r] - m_new) * kLog2e), sum);
+      m[r] = m_new;
+    }
+  }
+}
+
+// Between the passes: the rows' max (times log2 e) and 1/sum, the four
+// lanes of each quad combined.
+__device__ __forceinline__ void finish_rows(const float (&m)[2], const float (&l)[2],
+                                            float (&mL)[2], float (&inv_l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mq = quad_max(m[r]);
+    mL[r] = mq * kLog2e;
+    inv_l[r] = 1.f / quad_sum(l[r] * ex2((m[r] - mq) * kLog2e));
+  }
+}
+
+// Pass 2: o += p v over a chunk whose first nk keys are valid, p =
+// bf16(exp(s - max)) (kDeferred: the caller scales o by 1/sum) or
+// bf16(exp(s - max) / sum), rounded in the A-fragment layout of P v (key
+// tiles 2k, 2k+1 make k-step k); v rows of kLdK in shared memory.
+template <bool kDeferred>
+__device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float (&mL)[2],
+                                            const float (&inv_l)[2], const bf16* vs, int nk,
+                                            int lane, float (&o)[4][4]) {
+  const int mi = lane / 8;
+  unsigned pa[4][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float ex = ex2(fmaf(s[j][e], kLog2e, -mL[e >> 1]));
+      p[e] = kDeferred ? ex : ex * inv_l[e >> 1];
+    }
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk * 16 >= nk) break;  // exps of keys past nk are 0
+#pragma unroll
+    for (int n = 0; n < 4; n += 2) {
+      unsigned b[4];
+      ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
+                               (mi >> 1) * 8);
+      mma_bf16(o[n], pa[kk], b[0], b[1]);
+      mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
+    }
   }
 }
 
@@ -365,33 +492,18 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
                                 (mi >> 1) * 8);
     }
     const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys, nk = a.Nk - c0;
-    if (it == nch) {
-      // the rows' max and sum: combine the four lanes of each quad
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m = quad_max(m_t[r]);
-        const float l = quad_sum(l_t[r] * ex2((m_t[r] - m) * kLog2e));
-        mL[r] = m * kLog2e;
-        inv_l[r] = 1.f / l;
-      }
-    }
+    if (it == nch) finish_rows(m_t, l_t, mL, inv_l);
     const bf16* ks = reinterpret_cast<const bf16*>(stages + (it % kStages) * kStageBytes);
     const bf16* vs = ks + kMmaKeys * kLdK;
     const bf16* bs = vs + kMmaKeys * kLdK;
     const int* bks = reinterpret_cast<const int*>(bs + kMmaRows * kLdB);
 
-    // logits of this warp's 16 rows against the chunk's 64 keys
+    // logits of this warp's 16 rows against the chunk's 64 keys: scale and
+    // bias, the shift mask, and keys past Nk drop out.  The products run
+    // over the whole chunk (its rows past Nk are zero-filled), so the loops
+    // carry no branch on nk
     float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-      unsigned b[4];
-      ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
-      mma_bf16(s[j], qa[0], b[0], b[1]);
-      mma_bf16(s[j], qa[1], b[2], b[3]);
-    }
-    // scale and bias, the shift mask, and keys past Nk drop out
+    chunk_qk(qa, ks, kMmaKeys, lane, s);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = j * 8 + 2 * qd;
@@ -403,66 +515,11 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bv[e]);
     }
-    if (bkg) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int2 bk2 = *reinterpret_cast<const int2*>(bks + j * 8 + 2 * qd);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (((e & 1) ? bk2.y : bk2.x) != bqr[e >> 1]) s[j][e] += -100.f;
-      }
-    }
-    if (nk < kMmaKeys) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j * 8 + 2 * qd + (e & 1) >= nk) s[j][e] = -INFINITY;
-    }
+    mask_logits(s, bkg ? bks : nullptr, bqr, nk, lane);
     if (!pass) {
-      // pass 1: fold the chunk into this thread's running max and sum
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-        const float m_new = fmaxf(m_t[r], mx);
-        if (m_new != -INFINITY) {
-          const float ml = m_new * kLog2e;
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            sum += ex2(fmaf(s[j][2 * r], kLog2e, -ml)) + ex2(fmaf(s[j][2 * r + 1], kLog2e, -ml));
-          l_t[r] = fmaf(l_t[r], ex2((m_t[r] - m_new) * kLog2e), sum);
-          m_t[r] = m_new;
-        }
-      }
+      fold_rows(s, m_t, l_t);
     } else {
-      // pass 2: probabilities, rounded to bf16 in the A-fragment layout of
-      // P v (key tiles 2k, 2k+1 make k-step k), then P v
-      unsigned pa[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float ex = ex2(fmaf(s[j][e], kLog2e, -mL[e >> 1]));
-          p[e] = kDeferred ? ex : ex * inv_l[e >> 1];
-        }
-        pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int n = 0; n < 4; n += 2) {
-          unsigned b[4];
-          ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
-                                   (mi >> 1) * 8);
-          mma_bf16(o[n], pa[kk], b[0], b[1]);
-          mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
-        }
-      }
+      exp_times_v<kDeferred>(s, mL, inv_l, vs, kMmaKeys, lane, o);
     }
     __syncthreads();  // the stage is consumed before the next load refills it
   }
@@ -523,16 +580,16 @@ int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
 // norm, or null.
 int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale0,
                        const float* scale1, void* ws, const Regions& reg, int B, int C, int Cp,
-                       int heads, int nparts, int norm_mask, cudaStream_t stream) {
-  const size_t smem =
-      kMmaRows * 4 + sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
+                       int heads, int d, int nparts, int norm_mask, cudaStream_t stream) {
+  const size_t smem = kMmaRows * 4 + (size_t)nparts * heads * kDP * 4 +
+                      sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
   const int err = set_smem(mma_project_kernel, smem);
   if (err) return err;
   const int regions = (reg.H / reg.rh) * (reg.W / reg.rw), N = reg.rh * reg.rw;
   const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows);
   mma_project_kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, scale0, scale1,
-      static_cast<bf16*>(ws), reg, C, Cp, heads, nparts, norm_mask);
+      static_cast<bf16*>(ws), reg, C, Cp, heads, d, nparts, norm_mask);
   return static_cast<int>(cudaGetLastError());
 }
 

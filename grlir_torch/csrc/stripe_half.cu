@@ -24,15 +24,16 @@
 // cores, mma.sync m16n8k16 with bf16 operands and fp32 sums.
 // mma_project_kernel (stripe_attn_mma.cuh) writes q (unit-normed, times
 // s2), k (unit-normed, times s1) and v of every stripe into workspace rows
-// of 32 (w packed per head by the wrapper, so d = 30 and C = 180 keep
-// 16-byte copies); the workspace (25 MB at GRL-S 256^2) stays in the 50 MB
+// of 32 (zeros past d, so that d = 30 keeps 16-byte copies); the
+// workspace (25 MB at GRL-S 256^2) stays in the 50 MB
 // L2 for mma_stripe_resident_kernel, one block of 4 warps per (stripe,
 // head).  That block unit-norms the stripe's anchors into shared memory,
 // runs a2w with 16 anchor rows a warp against k and v streamed in chunks of
 // 64 (cp.async, double-buffered; two passes: max and sum, then the rounded
 // exps times v), keeps x1 in shared memory, then runs w2a with 16 stripe
 // tokens a warp against the resident anchors and x1.  The workspace round
-// trip costs about twice the bytes of x and y.
+// trip costs about twice the bytes of x and y.  Head dim <= 32 (one row of
+// the workspace).
 //
 // fp32 (`grlir_stripe_half`): the TPU kernel then computes in fp32, and
 // TF32 products would not hold it, so the route stays on CUDA cores:
@@ -40,22 +41,21 @@
 // projects k and v per tile and folds the tile into an online (running max
 // and sum) softmax over N1 for every anchor row; pass B projects q per
 // tile, and its softmax over N2 is complete per token.  Shared memory then
-// holds one tile, the anchor and x1, whatever N1 is; FMA issue and
-// shared-memory traffic bound it.
+// holds one tile, the anchor and x1, whatever N1 is (every N2 <= 128 at d
+// <= 64 fits); FMA issue and shared-memory traffic bound it.
 #include <algorithm>
 
 #include "stripe_attn_mma.cuh"
 
 namespace grlir {
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
-                   const T* __restrict__ w, const float* __restrict__ bqkv,
+stripe_half_kernel(const float* __restrict__ x, const float* __restrict__ anchor,
+                   const float* __restrict__ w, const float* __restrict__ bqkv,
                    const float* __restrict__ scale1, const float* __restrict__ scale2,
                    const float* __restrict__ bias_a2w, const float* __restrict__ bias_w2a,
                    const int* __restrict__ bands, const int* __restrict__ bands_a,
-                   T* __restrict__ y, int H, int W, int C, int Cs, int heads, int sh, int sw,
+                   float* __restrict__ y, int H, int W, int C, int Cs, int heads, int sh, int sw,
                    int df, int shift_h, int shift_w) {
   const int d = Cs / heads, ah = sh / df, aw = sw / df;
   const int N1 = sh * sw, N2 = ah * aw;
@@ -82,7 +82,7 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
   for (int i = threadIdx.x; i < N2 * d; i += kThreads) {
     const int a = i / d, e = i % d;
     const size_t p = (size_t)(b * Ha + sy * ah + a / aw) * Wa + sx * aw + a % aw;
-    an[a * lda + e] = to_f(anchor[p * Cs + hh * d + e]);
+    an[a * lda + e] = anchor[p * Cs + hh * d + e];
     acc[a * lda + e] = 0.f;
   }
   for (int a = threadIdx.x; a < N2; a += kThreads) {
@@ -90,7 +90,7 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
     lrow[a] = 0.f;
   }
   __syncthreads();
-  normalize_rows<T>(an, N2, d, lda, 1.f);
+  normalize_rows<float>(an, N2, d, lda, 1.f);
 
   auto load_pixels = [&](int t0, int nt) {
     for (int r = threadIdx.x; r < nt; r += kThreads) {
@@ -106,12 +106,8 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
     const int nt = min(kTileRows, N1 - t0);
     load_pixels(t0, nt);
     __syncthreads();
-    project_tile<T>(x, pix, nt, C, w, 3 * Cs, bqkv, cols, 2 * d, scratch, tile, ldt);
-    normalize_rows<T>(tile, nt, d, ldt, scale1[hh]);
-    for (int i = threadIdx.x; i < nt * d; i += kThreads) {
-      float* v = tile + (i / d) * ldt + d + i % d;
-      *v = round_mm<T>(*v);
-    }
+    project_tile<float>(x, pix, nt, C, w, 3 * Cs, bqkv, cols, 2 * d, scratch, tile, ldt);
+    normalize_rows<float>(tile, nt, d, ldt, scale1[hh]);
     __syncthreads();
     for (int i = threadIdx.x; i < N2 * nt; i += kThreads) {
       const int a = i / nt, t = i % nt;
@@ -133,7 +129,7 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
       for (int t = lane; t < nt; t += 32) {
         const float e = expf(s[t] - m_new);
         ls += e;
-        s[t] = round_mm<T>(e);
+        s[t] = e;
       }
       ls = warp_sum(ls);
       __syncwarp();
@@ -150,10 +146,10 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
     }
     __syncthreads();
   }
-  // x1 = sums / row sum, rounded to T as the second product's operand
+  // x1 = sums / row sum, the second product's operand
   for (int i = threadIdx.x; i < N2 * d; i += kThreads) {
     const int a = i / d, e = i % d;
-    acc[a * lda + e] = round_mm<T>(acc[a * lda + e] * (1.f / lrow[a]));
+    acc[a * lda + e] *= 1.f / lrow[a];
   }
 
   // pass B (w2a): q per tile, softmax over N2 per token, times x1
@@ -163,8 +159,8 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
     __syncthreads();
     load_pixels(t0, nt);
     __syncthreads();
-    project_tile<T>(x, pix, nt, C, w, 3 * Cs, bqkv, cols, d, scratch, tile, ldt);
-    normalize_rows<T>(tile, nt, d, ldt, scale2[hh]);
+    project_tile<float>(x, pix, nt, C, w, 3 * Cs, bqkv, cols, d, scratch, tile, ldt);
+    normalize_rows<float>(tile, nt, d, ldt, scale2[hh]);
     __syncthreads();
     float* p = scratch + warp * N2;
     for (int t = warp; t < nt; t += kWarps) {
@@ -185,26 +181,25 @@ stripe_half_kernel(const T* __restrict__ x, const T* __restrict__ anchor,
       for (int a = lane; a < N2; a += 32) {
         const float e = expf(p[a] - mx);
         sum += e;
-        p[a] = round_mm<T>(e);
+        p[a] = e;
       }
       const float inv = 1.f / warp_sum(sum);
       __syncwarp();
       const int tt = t0 + t;
-      T* out = y + ((size_t)(b * H + sy * sh + tt / sw) * W + sx * sw + tt % sw) * Cs + hh * d;
+      float* out = y + ((size_t)(b * H + sy * sh + tt / sw) * W + sx * sw + tt % sw) * Cs + hh * d;
       for (int e = lane; e < d; e += 32) {
         float o = 0.f;
         for (int a = 0; a < N2; ++a) o = fmaf(p[a], acc[a * lda + e], o);
-        out[e] = from_f<T>(o * inv);
+        out[e] = o * inv;
       }
       __syncwarp();
     }
   }
 }
 
-template <typename T>
-int launch_stripe_half(const void* x, const void* anchor, const void* w, const float* bqkv,
+int launch_stripe_half(const float* x, const float* anchor, const float* w, const float* bqkv,
                        const float* s1, const float* s2, const float* b1, const float* b2,
-                       const int* bands, const int* bands_a, void* y, int B, int H, int W,
+                       const int* bands, const int* bands_a, float* y, int B, int H, int W,
                        int C, int Cs, int heads, int sh, int sw, int df, int shift_h,
                        int shift_w, cudaStream_t stream) {
   const int d = Cs / heads, N2 = (sh / df) * (sw / df);
@@ -212,14 +207,13 @@ int launch_stripe_half(const void* x, const void* anchor, const void* w, const f
       sizeof(float) *
       (kTileRows + 2 * d + std::max(kProjScratch, std::max(N2 * (kTileRows + 1), kWarps * N2)) +
        kTileRows * (2 * d + 1) + 2 * N2 * (d + 1) + 2 * N2);
-  auto kernel = stripe_half_kernel<T>;
+  auto kernel = stripe_half_kernel;
   const int err = set_smem(kernel, smem);
   if (err) return err;
   const dim3 grid(B * (H / sh) * (W / sw), heads);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(anchor), static_cast<const T*>(w),
-      bqkv, s1, s2, b1, b2, bands, bands_a, static_cast<T*>(y), H, W, C, Cs, heads, sh, sw,
-      df, shift_h, shift_w);
+      x, anchor, w, bqkv, s1, s2, b1, b2, bands, bands_a, y, H, W, C, Cs, heads, sh, sw, df,
+      shift_h, shift_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,70 +222,6 @@ int launch_stripe_half(const void* x, const void* anchor, const void* w, const f
 namespace {
 
 constexpr int kMmaWarps = kMmaThreads / 32;
-
-// The row statistics of a softmax over key chunks, kept per thread for its
-// two rows (r0 = lane / 4 and r0 + 8 of the warp's 16): fold a chunk's
-// logits s[8][4] (64 keys, the mma accumulator layout) into the running max
-// m and sum l.
-__device__ __forceinline__ void fold_rows(const float (&s)[8][4], float (&m)[2], float (&l)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-    const float m_new = fmaxf(m[r], mx);
-    if (m_new != -INFINITY) {
-      const float ml = m_new * kLog2e;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sum += ex2(fmaf(s[j][2 * r], kLog2e, -ml)) + ex2(fmaf(s[j][2 * r + 1], kLog2e, -ml));
-      l[r] = fmaf(l[r], ex2((m[r] - m_new) * kLog2e), sum);
-      m[r] = m_new;
-    }
-  }
-}
-
-// The rows' max (times log2 e) and 1/sum: the four lanes of each quad
-// combined.
-__device__ __forceinline__ void finish_rows(const float (&m)[2], const float (&l)[2],
-                                            float (&mL)[2], float (&inv_l)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float mq = quad_max(m[r]);
-    mL[r] = mq * kLog2e;
-    inv_l[r] = 1.f / quad_sum(l[r] * ex2((m[r] - mq) * kLog2e));
-  }
-}
-
-// o += bf16(exp(s - max)) v over a chunk of 64 keys whose first nk are
-// valid: the exps rounded in the A-fragment layout of P v (key tiles 2k,
-// 2k+1 make k-step k), v rows of kLdK in shared memory.
-__device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float (&mL)[2],
-                                            const bf16* vs, int nk, int lane, float (&o)[4][4]) {
-  const int mi = lane / 8;
-  unsigned pa[4][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float p[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[e] = ex2(fmaf(s[j][e], kLog2e, -mL[e >> 1]));
-    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
-    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (kk * 16 >= nk) break;  // exps of keys past nk are 0, their rows of v too
-#pragma unroll
-    for (int n = 0; n < 4; n += 2) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
-                               (mi >> 1) * 8);
-      mma_bf16(o[n], pa[kk], b[0], b[1]);
-      mma_bf16(o[n + 1], pa[kk], b[2], b[3]);
-    }
-  }
-}
 
 // Logits of a warp's 16 rows (A fragments qa) against a chunk of 64 keys
 // (rows of kLdK in shared memory, the first nk valid), plus the fp32 bias
@@ -303,17 +233,8 @@ __device__ __forceinline__ void chunk_logits(const unsigned (&qa)[2][4], const b
                                              const float* bias, int ld, int row0, int nrows,
                                              int c0, bool bias_vec, const int* bk,
                                              const int (&bq)[2], int lane, float (&s)[8][4]) {
-  const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    if (j * 8 >= nk) continue;
-    unsigned b[4];
-    ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
-    mma_bf16(s[j], qa[0], b[0], b[1]);
-    mma_bf16(s[j], qa[1], b[2], b[3]);
-  }
+  const int gr = lane / 4, qd = lane % 4;
+  chunk_qk(qa, ks, nk, lane, s);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + gr + 8 * r;
@@ -332,17 +253,9 @@ __device__ __forceinline__ void chunk_logits(const unsigned (&qa)[2][4], const b
       }
       s[j][2 * r] += bv.x;
       s[j][2 * r + 1] += bv.y;
-      if (bk) {
-        if (bk[col] != bq[r]) s[j][2 * r] += -100.f;
-        if (bk[col + 1] != bq[r]) s[j][2 * r + 1] += -100.f;
-      }
     }
   }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (j * 8 + 2 * qd + (e & 1) >= nk) s[j][e] = -INFINITY;
+  mask_logits(s, bk, bq, nk, lane);
 }
 
 // bytes of one a2w pipeline stage: k and v chunks and their band ids
@@ -467,7 +380,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
         if (!pass) {
           fold_rows(s, m_t, l_t);
         } else {
-          exp_times_v(s, mL, vs, min(kMmaKeys, N1 - c0), lane, o);
+          exp_times_v<true>(s, mL, inv_l, vs, min(kMmaKeys, N1 - c0), lane, o);
         }
       }
       __syncthreads();  // the stage is consumed before the next load refills it
@@ -525,7 +438,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
       if (nchb > 1)
         chunk_logits(qa, an + c0 * kLdK, min(kMmaKeys, N2 - c0), b2, N2, t0, N1, c0, vec2,
                      bt ? ban + c0 : nullptr, bq, lane, s);
-      exp_times_v(s, mL, x1 + c0 * kLdK, min(kMmaKeys, N2 - c0), lane, o);
+      exp_times_v<true>(s, mL, inv_l, x1 + c0 * kLdK, min(kMmaKeys, N2 - c0), lane, o);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -555,7 +468,8 @@ int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, co
   if (err) return err;
   // q (unit-normed, times s2), k (unit-normed, times s1), v
   const Regions reg{H, W, sh, sw, shift_h, shift_w};
-  err = launch_mma_project(x, wt, bp, s2, s1, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+  err = launch_mma_project(x, wt, bp, s2, s1, ws, reg, B, C, Cp, heads, Cs / heads, 3, 0b011,
+                           stream);
   if (err) return err;
   const int groups = B * (H / sh) * (W / sw);
   const long long blocks = (long long)groups * heads;
@@ -581,16 +495,18 @@ extern "C" int grlir_stripe_half(const void* x, const void* anchor, const void* 
                                  const int* bands_a, void* y, int B, int H, int W, int C,
                                  int Cs, int heads, int sh, int sw, int df, int shift_h,
                                  int shift_w, void* stream) {
-  return grlir::launch_stripe_half<float>(x, anchor, w, bqkv, s1, s2, b1, b2, bands, bands_a,
-                                          y, B, H, W, C, Cs, heads, sh, sw, df, shift_h,
-                                          shift_w, static_cast<cudaStream_t>(stream));
+  return grlir::launch_stripe_half(
+      static_cast<const float*>(x), static_cast<const float*>(anchor),
+      static_cast<const float*>(w), bqkv, s1, s2, b1, b2, bands, bands_a,
+      static_cast<float*>(y), B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w,
+      static_cast<cudaStream_t>(stream));
 }
 
 // bf16 on tensor cores.  x, anchor and y as for the fp32 entry in bf16; s1,
-// s2, b1, b2 as for the fp32 entry; wt (3 * heads * 32, Cp) bf16 and bp (3
-// * heads * 32,) fp32: w and bqkv packed per head into 32 rows, C
-// zero-padded to Cp (a multiple of 16); ws: B * stripes * heads * 3 * N1 *
-// 32 bf16.
+// s2, b1, b2 as for the fp32 entry; wt (3Cs, Cp) bf16: w transposed, rows
+// Cp apart (C rounded up to 16; values past C are not read); bp (3Cs,)
+// fp32; ws: B * stripes * heads * 3 * N1 * 32 bf16.  Returns -1 as well
+// for d > 32.
 extern "C" int grlir_stripe_half_mma(const void* x, const void* anchor, const void* wt,
                                      const float* bp, const float* s1, const float* s2,
                                      const float* b1, const float* b2, const int* bands,

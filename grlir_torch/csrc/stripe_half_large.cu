@@ -31,8 +31,7 @@
 // step at GRL-base x4 SR 256^2 (3 x 1024 x 4096 bf16 each way) and 100.7 MB
 // at its 2 x 256^2 denoising tile, against 16 readers each.  Workspace rows
 // are zero-padded to 32 so that every attention load is a 16-byte cp.async:
-// the wrapper packs w per head into 32 columns (C padded to 16), the
-// projection and the anchors write rows of 32, and the w2a step pads x1.
+// the projection and the anchors write rows of 32, and the w2a step pads x1.
 // On an H100 80GB HBM3 (700 W power limit) a step at GRL-base x4 SR 256^2
 // takes 0.52 ms of device time, 0.44 ms of it the attention kernel, which
 // one chunk in flight a block and 16 warps an SM (128 registers) leave
@@ -159,7 +158,7 @@ int a2w_mma(const void* x, const void* anchor, const void* wt, const float* bp,
   if (err) return err;
   // k (unit-normed) and v of every stripe: wt holds the k and v parts
   err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_kv, G.regions(), G.B, G.C, Cp,
-                           G.heads, 2, 0b01, stream);
+                           G.heads, G.d(), 2, 0b01, stream);
   if (err) return err;
   const AttnArgs a =
       a2w_args(ws_an, ws_kv, sizeof(bf16), kDP, s1, bias, bands, bands_a, x1, G);
@@ -176,7 +175,7 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
   if (err) return err;
   // q (unit-normed) of every stripe: wt holds the q part
   err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_q, G.regions(), G.B, G.C, Cp,
-                           G.heads, 1, 0b1, stream);
+                           G.heads, d, 1, 0b1, stream);
   if (err) return err;
   err = launch_pad_rows(x1, ws_x1, (long long)G.B * G.stripes() * G.heads * G.N2(), d, stream);
   if (err) return err;
@@ -219,10 +218,10 @@ extern "C" int grlir_stripe_w2a_large(const void* x, const void* anchor, const v
 }
 
 // a2w step, bf16 on tensor cores.  x, anchor, bias and x1 as for the fp32
-// entry in bf16; wt (2 * heads * 32, Cp) bf16 and bp (2 * heads * 32,) fp32:
-// the k and v columns of w and bqkv, per head zero-padded to 32 rows, C
-// zero-padded to Cp (a multiple of 16); s1 fp32; ws_an: B * stripes * heads
-// * N2 * 32 and ws_kv: B * stripes * heads * 2 * N1 * 32 bf16.
+// entry in bf16; wt (2Cs, Cp) bf16: the k and v columns of w, transposed,
+// rows Cp apart (C rounded up to 16; values past C are not read); bp (2Cs,)
+// fp32: the k and v values of bqkv; s1 fp32; ws_an: B * stripes * heads *
+// N2 * 32 and ws_kv: B * stripes * heads * 2 * N1 * 32 bf16.
 extern "C" int grlir_stripe_a2w_large_mma(const void* x, const void* anchor, const void* wt,
                                           const float* bp, const float* s1, const void* bias,
                                           const int* bands, const int* bands_a, void* ws_an,
@@ -234,8 +233,8 @@ extern "C" int grlir_stripe_a2w_large_mma(const void* x, const void* anchor, con
                         static_cast<cudaStream_t>(stream));
 }
 
-// w2a step, bf16 on tensor cores.  wt (heads * 32, Cp) and bp: the q
-// columns, packed as for the a2w entry; ws_q: B * stripes * heads * N1 * 32
+// w2a step, bf16 on tensor cores.  wt (Cs, Cp) and bp (Cs,): the q
+// columns, laid out as for the a2w entry; ws_q: B * stripes * heads * N1 * 32
 // and ws_x1: B * stripes * heads * N2 * 32 bf16; the rest as for the fp32
 // w2a entry in bf16.
 extern "C" int grlir_stripe_w2a_large_mma(const void* x, const void* anchor, const void* x1,

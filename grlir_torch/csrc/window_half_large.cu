@@ -27,8 +27,8 @@
 // pipeline (stripe_attn_mma.cuh) with B3's rounding: mma.sync m16n8k16
 // with bf16 operands and fp32 sums; the projection folds the logit scale
 // into q after the unit norm and before the bf16 rounding, as the TPU does
-// (:272, :280), into workspace rows padded to 32 (w packed per head by the
-// wrapper, C padded to 16, so d = 30 and C = 180 keep 16-byte copies); the
+// (:272, :280), into workspace rows padded to 32 (zeros past d, so that d =
+// 30 keeps 16-byte copies); the
 // attention runs kDeferred, 64 query rows a block with the window the
 // grid's fastest index, so each bias tile comes from HBM about once and
 // from L2 for the other B x 64 windows.
@@ -89,7 +89,7 @@ int window_half_large_mma(const void* x, const void* wt, const float* bp, const 
   const Regions reg{H, W, wh, ww, shift, shift};
   // q (unit-normed, times the scale), k (unit-normed), v, in rows of 32
   int err =
-      launch_mma_project(x, wt, bp, scale, nullptr, ws, reg, B, C, Cp, heads, 3, 0b011, stream);
+      launch_mma_project(x, wt, bp, scale, nullptr, ws, reg, B, C, Cp, heads, d, 3, 0b011, stream);
   if (err) return err;
   const AttnArgs a = window_args(ws, sizeof(bf16), kDP, bias, bands, y, H, W, d, heads, wh, ww);
   return launch_mma_attend<true>(a, B * a.regions, stream);
@@ -113,9 +113,9 @@ extern "C" int grlir_window_half_large(const void* x, const void* w, const float
 }
 
 // bf16 on tensor cores.  x, bias and y as for the fp32 entry in bf16; wt
-// (3 * heads * 32, Cp) bf16 and bp (3 * heads * 32,) fp32: w and bqkv
-// packed per head into 32 rows, C zero-padded to Cp (a multiple of 16);
-// scale as for the fp32 entry; ws: B * windows * heads * 3 * N * 32 bf16.
+// (3Cw, Cp) bf16: w transposed, rows Cp apart (C rounded up to 16; values
+// past C are not read); bp (3Cw,) fp32; scale as for the fp32 entry; ws:
+// B * windows * heads * 3 * N * 32 bf16.
 extern "C" int grlir_window_half_large_mma(const void* x, const void* wt, const float* bp,
                                            const float* scale, const void* bias,
                                            const int* bands, void* ws, void* y, int B, int H,

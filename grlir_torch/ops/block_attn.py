@@ -38,12 +38,10 @@ the caller un-rolls them.
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.layout import window_partition, window_reverse
@@ -179,9 +177,11 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
-              bias_dtype=torch.float32):
+              bias_dtype=torch.float32, parts: Optional[Tuple[int, int]] = None):
     """Contiguous kernel operands on x's device: w in x's type, fp32 bias
-    vector and scales, position biases in bias_dtype, int32 band ids."""
+    vector and scales, position biases in bias_dtype, int32 band ids.  With
+    parts = (p0, n), for the tensor-core routes: w is `_pack_w` of parts
+    p0..p0+n and the bias vector those parts' values."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     C3 = wqkv.shape[1]
@@ -192,7 +192,13 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
     for t in (wqkv, b, *logit_scales, *biases, *bands):
         if t is not None and t.device != x.device:
             raise ValueError(f"operand on {t.device}, x on {x.device}")
-    return (x.contiguous(), wqkv.to(x.dtype).contiguous(), b,
+    if parts is None:
+        w = wqkv.to(x.dtype).contiguous()
+    else:
+        p0, n = parts
+        w = _pack_w(wqkv, p0, n)
+        b = b[p0 * C3 // 3:(p0 + n) * C3 // 3]
+    return (x.contiguous(), w, b,
             [_scale(s).contiguous() for s in logit_scales],
             [t.to(bias_dtype).contiguous() for t in biases],
             [None if t is None else t.to(torch.int32).contiguous()
@@ -327,22 +333,22 @@ def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     wh, ww = window
     N, d = wh * ww, Cw // h
     _check_large_d("window_half_large", d)
+    tc = x.dtype == torch.bfloat16
     x, w, b, (s,), (bias,), (bands,) = _operands(
         x, wqkv, bqkv, [logit_scale], [bias], [bands],
-        bias_dtype=torch.bfloat16)
+        bias_dtype=torch.bfloat16, parts=(0, 3) if tc else None)
     nW = (H // wh) * (W // ww)
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
     geom = (B, H, W, C, Cw, h, wh, ww, int(shift))
     lib = cuda_build.library()
     # q (unit-normed, times the scale), k (unit-normed) and v of every
     # window and head, rounded to x's type: in rows of 32 for bf16
-    if x.dtype == torch.bfloat16:
-        wt, bp = _packed_w(wqkv, bqkv, 0, 3, h)
+    if tc:
         ws = torch.empty((B * nW, h, 3, N, _LARGE_MAX_D), dtype=x.dtype,
                          device=x.device)
         err = lib.grlir_window_half_large_mma(
-            _ptr(x), _ptr(wt), _ptr(bp), _ptr(s), _ptr(bias), _ptr(bands),
-            _ptr(ws), _ptr(y), *geom, wt.shape[1], _stream(x))
+            _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
+            _ptr(ws), _ptr(y), *geom, w.shape[1], _stream(x))
     else:
         ws = torch.empty((B * nW, h, 3, N, d), dtype=x.dtype, device=x.device)
         err = lib.grlir_window_half_large(
@@ -535,24 +541,25 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
     B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
         "stripe_half", x, anchor, wqkv, logit_scale1, stripe, df, bands,
         bands_a, bias_a2w, bias_w2a)
+    tc = x.dtype == torch.bfloat16
+    if tc:   # the tensor-core route's workspace rows hold 32 columns
+        _check_large_d("stripe_half", Cs // h)
     x, w, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1, logit_scale2], [bias_a2w, bias_w2a],
-        [bands, bands_a])
+        [bands, bands_a], parts=(0, 3) if tc else None)
     anchor = anchor.to(x.dtype).contiguous()
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     lib = cuda_build.library()
-    if x.dtype == torch.bfloat16:
-        _check_large_d("stripe_half", Cs // h)
+    if tc:
         # q (unit-normed, times s2), k (unit-normed, times s1) and v of
         # every stripe, in rows of 32
-        wt, bp = _packed_w(wqkv, bqkv, 0, 3, h)
         ws = torch.empty((B * nW, h, 3, N1, _LARGE_MAX_D), dtype=x.dtype,
                          device=x.device)
         err = lib.grlir_stripe_half_mma(
-            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(s1), _ptr(s2),
+            _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2),
             _ptr(b1), _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws), _ptr(y),
-            *geom, wt.shape[1], _stream(x))
+            *geom, w.shape[1], _stream(x))
     else:
         err = lib.grlir_stripe_half(
             _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2),
@@ -568,56 +575,20 @@ stripe_half.launches = 0
 stripe_half.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 
-def _pack_w(w, b, p0: int, nparts: int, num_heads: int):
-    """Parts p0..p0+nparts (q, k, v = 0, 1, 2) of w (C, 3Cs) and b (3Cs,)
-    as the tensor-core projection takes them: w transposed, each head's d
-    columns zero-padded to 32 rows and C to Cp, a multiple of 16, so that
-    every row is 16-byte aligned: (nparts*h*32, Cp) bf16, and b padded the
-    same way: (nparts*h*32,) fp32."""
+def _pack_w(w, p0: int, nparts: int) -> torch.Tensor:
+    """Parts p0..p0+nparts (q, k, v = 0, 1, 2) of w (C, 3Cs) as the
+    tensor-core projection reads them: transposed, one row of C bf16 values
+    an output column, the rows Cp apart (C rounded up to a multiple of 16)
+    so that each starts 16-byte aligned: (nparts*Cs, Cp).  The kernel pads
+    each head to 32 columns itself and reads the first C values of a row;
+    the rest are left unset.  Packed on every call from the w it is given,
+    so every write to the weights is seen."""
     C, C3 = w.shape
-    d = C3 // (3 * num_heads)
-    cols = slice(p0 * C3 // 3, (p0 + nparts) * C3 // 3)
-    wt = w[:, cols].to(torch.bfloat16).t().reshape(nparts, num_heads, d, C)
-    wt = F.pad(wt, (0, -C % 16, 0, _LARGE_MAX_D - d))
-    bp = F.pad(b[cols].float().reshape(nparts, num_heads, d),
-               (0, _LARGE_MAX_D - d))
-    # contiguous: with d = 32 and C % 16 == 0 nothing is padded, and wt
-    # would stay a transposed view
-    return (wt.reshape(-1, wt.shape[-1]).contiguous(),
-            bp.reshape(-1).contiguous())
-
-
-# _pack_w's results by the operands they were packed from, most recent last.
-# The model passes views of its parameters, so its forwards pack nothing
-# after the first.  A key holds the operand's address, version (bumped by
-# every in-place update) and layout, and its entry holds the operand, so no
-# other tensor can take that address while the entry lives.
-_PACKED_MAX = 256
-_packed = collections.OrderedDict()
-
-
-def _operand_key(t: Optional[torch.Tensor]):
-    if t is None:
-        return None
-    return (t.data_ptr(), t._version, t.dtype, t.device, tuple(t.shape),
-            t.stride())
-
-
-def _packed_w(wqkv, bqkv, p0: int, nparts: int, num_heads: int):
-    """`_pack_w` of the caller's wqkv (C, 3Cs) and bqkv (3Cs,) or None,
-    packed once for every version of them."""
-    key = (_operand_key(wqkv), _operand_key(bqkv), p0, nparts, num_heads)
-    entry = _packed.get(key)
-    if entry is None:
-        b = (torch.zeros(wqkv.shape[1], device=wqkv.device) if bqkv is None
-             else bqkv)
-        entry = (wqkv, bqkv, *_pack_w(wqkv, b, p0, nparts, num_heads))
-        _packed[key] = entry
-        if len(_packed) > _PACKED_MAX:
-            _packed.popitem(last=False)
-    else:
-        _packed.move_to_end(key)
-    return entry[2], entry[3]
+    Cs = C3 // 3
+    wt = torch.empty((nparts * Cs, -(-C // 16) * 16), dtype=torch.bfloat16,
+                     device=w.device)
+    wt[:, :C].copy_(w[:, p0 * Cs:(p0 + nparts) * Cs].t())
+    return wt
 
 
 def _count_route(fn, x: torch.Tensor) -> None:
@@ -649,25 +620,25 @@ def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
         bands_a, bias_a2w=bias_a2w)
     d = Cs // h
     _check_large_d("stripe_a2w_large", d)
+    tc = x.dtype == torch.bfloat16
     x, w, b, (s1,), (b1,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1], [bias_a2w], [bands, bands_a],
-        bias_dtype=x.dtype)
+        bias_dtype=x.dtype, parts=(1, 2) if tc else None)
     anchor = anchor.to(x.dtype).contiguous()
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     x1 = torch.empty((B, nW, h, N2, d), dtype=x.dtype, device=x.device)
     lib = cuda_build.library()
-    if x.dtype == torch.bfloat16:
+    if tc:
         # unit-normed anchors, then k (unit-normed) and v of every stripe,
         # in rows of 32
-        wt, bp = _packed_w(wqkv, bqkv, 1, 2, h)
         ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
                             device=x.device)
         ws_kv = torch.empty((B * nW, h, 2, N1, _LARGE_MAX_D), dtype=x.dtype,
                             device=x.device)
         err = lib.grlir_stripe_a2w_large_mma(
-            _ptr(x), _ptr(anchor), _ptr(wt), _ptr(bp), _ptr(s1), _ptr(b1),
+            _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(b1),
             _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_kv), _ptr(x1),
-            *geom, wt.shape[1], _stream(x))
+            *geom, w.shape[1], _stream(x))
     else:
         ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
         ws_kv = torch.empty((B * nW, h, 2, N1, d), dtype=x.dtype,
@@ -707,27 +678,27 @@ def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
         bands_a, bias_w2a=bias_w2a, x1=x1)
     d = Cs // h
     _check_large_d("stripe_w2a_large", d)
+    tc = x.dtype == torch.bfloat16
     x, w, b, (s2,), (b2,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale2], [bias_w2a], [bands, bands_a],
-        bias_dtype=x.dtype)
+        bias_dtype=x.dtype, parts=(0, 1) if tc else None)
     anchor = anchor.to(x.dtype).contiguous()
     x1 = x1.to(x.dtype).contiguous()
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
     lib = cuda_build.library()
-    if x.dtype == torch.bfloat16:
+    if tc:
         # unit-normed anchors, unit-normed q of every stripe and x1, in rows
         # of 32
-        wt, bp = _packed_w(wqkv, bqkv, 0, 1, h)
         ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
                             device=x.device)
         ws_q = torch.empty((B * nW, h, 1, N1, _LARGE_MAX_D), dtype=x.dtype,
                            device=x.device)
         ws_x1 = torch.empty_like(ws_an)
         err = lib.grlir_stripe_w2a_large_mma(
-            _ptr(x), _ptr(anchor), _ptr(x1), _ptr(wt), _ptr(bp), _ptr(s2),
+            _ptr(x), _ptr(anchor), _ptr(x1), _ptr(w), _ptr(b), _ptr(s2),
             _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws_an), _ptr(ws_q),
-            _ptr(ws_x1), _ptr(y), *geom, wt.shape[1], _stream(x))
+            _ptr(ws_x1), _ptr(y), *geom, w.shape[1], _stream(x))
     else:
         ws_an = torch.empty((B * nW, h, N2, d), dtype=x.dtype, device=x.device)
         ws_q = torch.empty((B * nW, h, 1, N1, d), dtype=x.dtype,

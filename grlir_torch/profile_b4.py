@@ -1,5 +1,5 @@
 """Device time of the tensor-core routes (B2, B3, B4) by CUDA kernel, and
-the device-busy share of the GRL-S forward.
+the device-busy share of the GRL-S and GRL-base forwards.
 
     python3 -m grlir_torch.profile_b4
 
@@ -14,9 +14,11 @@ inputs random from seed 0:
       shifted by half with band ids;
   B2  `stripe_half` at GRL-S x4 256^2 (vertical stripes 64x8, df 4,
       shifted with band ids), 2 heads of d = 32, C = 128;
-  GRL-S x4 256^2 bs1 forward (engine v3, random weights from seed 0): the
-      device-busy share, the CUDA kernel time of profiled forwards over the
-      wall time of as many forwards run without the profiler.
+  GRL-S x4 256^2 bs1 forward and GRL-base x4 256^2 bs1 forward at its
+      released eval geometry (window 32, stripes 64x64, df 2), engine v3,
+      random weights from seed 0: the device-busy share, the CUDA kernel
+      time of profiled forwards over the wall time of as many forwards run
+      without the profiler.
 
 Prints, for each, every CUDA kernel's device time a call (a B4 step: a2w
 and w2a averaged), then the card's nvidia-smi name and power limit.  Needs
@@ -82,6 +84,33 @@ def report(label: str, fn, per: int, unit: str) -> None:
               f"{key[:90]}")
 
 
+def forward_busy(label: str, cfg, hw: int, dev, g) -> None:
+    """Print the device-busy share of a bs1 bf16 forward of cfg on a random
+    hw x hw image, and its largest kernels."""
+    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
+                         torch.Generator().manual_seed(0)).eval().to(dev)
+    lr = torch.rand(1, hw, hw, 3, generator=g).to(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            model(lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            model(lr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows, wall_prof = profiled(lambda: model(lr), CALLS)
+    busy = sum(t for t, _, _ in rows) / 1e6
+    print(f"[profile_b4] {label} forward, engine v3: "
+          f"{busy / CALLS * 1e3:.3f} ms of CUDA kernel time (profiled) and "
+          f"{wall / CALLS * 1e3:.3f} ms of wall time (not profiled; {wall_prof / CALLS * 1e3:.3f} "
+          f"profiled) a forward, {CALLS} forwards each: device busy {100 * busy / wall:.1f}% "
+          f"({100 * busy / wall_prof:.1f}% of the profiled wall), "
+          f"{sum(c for _, _, c in rows) // CALLS} kernels a forward")
+    for t, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"[profile_b4]   {t / CALLS / 1e3:.4f} ms a forward  {count:5d} calls  {key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_b4: no CUDA device", file=sys.stderr)
@@ -138,28 +167,11 @@ def main() -> int:
     report("B2 stripe_half, GRL-S x4 256^2 (stripes 64x8, shift (32, 4))",
            lambda: ba.stripe_half(x, anchor, w, b, ls1, ls2, b1, b2, stripe, df, bands=bands,
                                   bands_a=bands_a, shift=(32, 4)), 1, "call")
-    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
-                         torch.Generator().manual_seed(0)).eval().to(dev)
-    lr = torch.rand(1, hw, hw, 3, generator=g).to(dev)
-    with torch.no_grad():
-        for _ in range(2):
-            model(lr)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            model(lr)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows, wall_prof = profiled(lambda: model(lr), CALLS)
-    busy = sum(t for t, _, _ in rows) / 1e6
-    print(f"[profile_b4] GRL-S x4 {hw}^2 bs1 bf16 forward, engine v3: "
-          f"{busy / CALLS * 1e3:.3f} ms of CUDA kernel time (profiled) and "
-          f"{wall / CALLS * 1e3:.3f} ms of wall time (not profiled; {wall_prof / CALLS * 1e3:.3f} "
-          f"profiled) a forward, {CALLS} forwards each: device busy {100 * busy / wall:.1f}% "
-          f"({100 * busy / wall_prof:.1f}% of the profiled wall), "
-          f"{sum(c for _, _, c in rows) // CALLS} kernels a forward")
-    for t, key, count in sorted(rows, reverse=True)[:8]:
-        print(f"[profile_b4]   {t / CALLS / 1e3:.4f} ms a forward  {count:5d} calls  {key[:90]}")
+    forward_busy(f"GRL-S x4 {hw}^2 bs1 bf16", cfg, hw, dev, g)
+    base = zoo.make_config("base", task="sr", upscale=4, window_size=32,
+                           anchor_window_down_factor=2, stripe_size=(64, 64),
+                           stripe_groups=(None, None))
+    forward_busy(f"GRL-base x4 {hw}^2 bs1 bf16", base, hw, dev, g)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from grlir.ops.pallas import block_attn as jba
 from grlir_torch.models.grl import GRL
@@ -329,24 +330,23 @@ def test_stripe_half_large_ref_matches_pallas_bf16(stripe, shifted,
 
 
 def test_pack_w_is_the_projection():
-    """The tensor-core route's packing of w and b (B4 on CUDA): row
-    (p*h + head)*32 + e of the packed w times x, plus the packed b, is
-    column e of that head's part p of x @ w + b; zeros past d and past C."""
+    """The tensor-core routes' layout of w: row p*Cs + head*d + e of the
+    packed parts p0..p0+n holds column e of that head's part p0+p in its
+    first C values, rows 16-byte aligned; x times those values plus the
+    parts' b is x @ w + b."""
     rng = np.random.default_rng(14)
     C, h, d = 70, 3, 10
     w = torch.from_numpy(rng.standard_normal((C, 3 * h * d)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(3 * h * d).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((5, C)).astype(np.float32)).bfloat16()
     full = (x.float() @ w.bfloat16().float() + b).reshape(5, 3, h, d)
-    for p0, n in ((0, 1), (1, 2)):
-        wt, bp = tba._pack_w(w.bfloat16(), b, p0, n, h)
-        assert wt.dtype == torch.bfloat16 and tuple(wt.shape) == (n * h * 32, 80)
-        assert bp.dtype == torch.float32 and tuple(bp.shape) == (n * h * 32,)
-        got = (x.float() @ wt[:, :C].float().t() + bp).reshape(5, n, h, 32)
-        torch.testing.assert_close(got[..., :d], full[:, p0:p0 + n],
+    for p0, n in ((0, 1), (1, 2), (0, 3)):
+        wt = tba._pack_w(w, p0, n)
+        assert wt.dtype == torch.bfloat16 and tuple(wt.shape) == (n * h * d, 80)
+        assert wt.stride() == (80, 1)
+        got = x.float() @ wt[:, :C].float().t() + b[p0 * h * d:(p0 + n) * h * d]
+        torch.testing.assert_close(got.reshape(5, n, h, d), full[:, p0:p0 + n],
                                    atol=1e-5, rtol=1e-5)
-        assert not got[..., d:].any()
-        assert not wt[:, C:].any()
 
 
 def test_large_routes_round_as_their_tpu_kernels():
@@ -438,12 +438,13 @@ def test_stripe_half_ref_matches_pallas_bf16(data, stripe, shifted):
 # (C, h, d): GRL-base's width, and GRL-S's, where nothing is padded
 @pytest.mark.parametrize("C,h,d", [(180, 3, 30), (128, 2, 32)])
 def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
-    """The tensor-core route's packing and its scales (B3: the logit scale
-    on q; B2: s2 on q, s1 on k): the packed w times x plus the packed b,
-    unit-normed over each head's 32 columns for q and k, times the scale of
-    packed part 0 or 1 and rounded to bf16, is bf16(unit(x w + b) s) per
-    head, as the plain versions compute it; v is the unscaled projection.
-    Tolerance: one bf16 ulp, for the two summation orders of the products."""
+    """The tensor-core projection on the packed w, as the kernel computes
+    it (B3: the logit scale on q; B2: s2 on q, s1 on k): each head's d
+    columns zero-padded to 32, x times them plus b, unit-normed over the 32
+    for q and k, times the scale of part 0 or 1, rounded to bf16, is
+    bf16(unit(x w + b) s) per head, as the plain versions compute it; v is
+    the unscaled projection.  Tolerance: one bf16 ulp, for the two
+    summation orders of the products."""
     rng = np.random.default_rng(17)
     w = torch.from_numpy(rng.standard_normal((C, 3 * h * d)).astype(np.float32) * 0.05)
     b = torch.from_numpy(rng.standard_normal(3 * h * d).astype(np.float32) * 0.05)
@@ -451,9 +452,11 @@ def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
     s1, s2 = (tba._scale(torch.from_numpy(rng.uniform(1, 5, (h, 1, 1)).astype(np.float32)))
               for _ in range(2))
     q, k, v = (x.float() @ w.bfloat16().float() + b).reshape(9, 3, h, d).unbind(1)
-    wt, bp = tba._pack_w(w.bfloat16(), b, 0, 3, h)
-    assert wt.is_contiguous() and bp.is_contiguous()
-    proj = (x.float() @ wt[:, :C].float().t() + bp).reshape(9, 3, h, 32)
+    wt = tba._pack_w(w, 0, 3)
+    assert wt.stride() == (wt.shape[1], 1) and wt.shape[1] % 16 == 0
+    rows = F.pad(wt[:, :C].float().reshape(3, h, d, C), (0, 0, 0, 32 - d))
+    bp = F.pad(b.reshape(3, h, d), (0, 32 - d))
+    proj = torch.einsum("tc,phec->tphe", x.float(), rows) + bp
     ones = torch.ones(h)
     for (scale0, scale1), want in (((s1, ones), (tba._unit(q) * s1[:, None], tba._unit(k), v)),
                                    ((s2, s1), (tba._unit(q) * s2[:, None],
@@ -467,24 +470,23 @@ def test_pack_w_with_scales_is_the_scaled_projection(C, h, d):
         assert not got[..., d:].any()
 
 
-def test_packed_w_packs_each_version_once():
-    """The tensor-core routes pack w once for the views of one parameter
-    that every forward passes, again after an in-place update, and treat
-    bqkv None as zeros."""
-    w = torch.randn(64, 96).bfloat16()
-    b = torch.randn(96)
-    want = tba._pack_w(w, b, 0, 3, 2)
-    got = tba._packed_w(w.t().t(), b, 0, 3, 2)
-    assert all(torch.equal(g, t) for g, t in zip(got, want))
-    again = tba._packed_w(w[:, :], b, 0, 3, 2)
-    assert all(a is g for a, g in zip(again, got))
-    with torch.no_grad():
-        w.mul_(2)
-    fresh = tba._packed_w(w, b, 0, 3, 2)
-    assert torch.equal(fresh[0], tba._pack_w(w, b, 0, 3, 2)[0])
-    assert not torch.equal(fresh[0], got[0])
-    _, bp = tba._packed_w(w, None, 1, 2, 2)
-    assert not bp.any()
+def test_pack_w_reads_the_weights_of_each_call():
+    """The tensor-core routes pack w from the operand of each call, the
+    model's view of its qkv weight (`MixedAttention`: weight.t() split per
+    half), so a write to the parameter is seen whatever path it takes,
+    `.data` (which bumps no version counter) included."""
+    C, Cs = 48, 32
+    lin = torch.nn.Linear(C, 6 * Cs)
+    half = 3 * Cs
+    for p0, n in ((0, 3), (1, 2), (0, 1)):
+        rows = lin.weight[half + p0 * Cs:half + (p0 + n) * Cs]
+        wt = tba._pack_w(lin.weight.t()[:, half:], p0, n)
+        assert torch.equal(wt[:, :C], rows.bfloat16())
+    before = tba._pack_w(lin.weight.t()[:, half:], 0, 3)
+    lin.weight.data.mul_(2)
+    after = tba._pack_w(lin.weight.t()[:, half:], 0, 3)
+    assert torch.equal(after[:, :C], lin.weight[half:].bfloat16())
+    assert torch.equal(after[:, :C], 2 * before[:, :C])
 
 
 def test_reset_launches_clears_the_routes():

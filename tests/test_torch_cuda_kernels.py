@@ -332,6 +332,47 @@ def test_kernels_refuse_large_geometries(cuda):
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
         tba.window_half(x[:, :64, :64], w1, None, ls1,
                         torch.zeros((1, 1024, 1024), device=cuda), (32, 32))
+    # and beyond the resident stripe kernel's on its bf16 route (GRL-S's
+    # 64x8 stripes at df 4); its fp32 route takes it
+    assert tba.stripe_route((64, 64), (64, 8), 4, 1) == "resident"
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
+        tba.stripe_half(x[:, :64, :64].bfloat16(),
+                        torch.zeros((1, 16, 16, 64), device=cuda, dtype=torch.bfloat16),
+                        w1, None, ls1, ls1, torch.zeros((1, 32, 512), device=cuda),
+                        torch.zeros((1, 512, 32), device=cuda), (64, 8), 4)
+
+
+@pytest.mark.cuda
+def test_stripe_resident_fp32_takes_head_dim_64(cuda):
+    """B2's CUDA-core route (fp32) at one head of d = 64, the widest its
+    shared memory holds; the bf16 route stops at 32."""
+    _run_stripe(cuda, torch.float32, (8, 16), 4, (4, 8), 32, 64, [tba.stripe_half],
+                c=64, heads=1, d=64)
+
+
+@pytest.mark.cuda
+def test_tensor_core_routes_see_weight_writes(cuda):
+    """B3 and B2 on their bf16 route read w on every call: after a write
+    through `.data`, which bumps no version counter, the next call matches
+    the plain version of the new weights."""
+    rng = np.random.default_rng(8)
+    w, b, ls1, ls2 = _base_weights(rng, cuda)
+    x = _rand(rng, 1, 32, 64, BC).to(cuda, torch.bfloat16)
+    anchor = _rand(rng, 1, 8, 16, BCH).to(cuda, torch.bfloat16)
+    bias = 16 * torch.sigmoid(_rand(rng, BH, 1024, 1024)).to(cuda)
+    b1 = 16 * torch.sigmoid(_rand(rng, BH, 8, 128)).to(cuda)
+    b2 = 16 * torch.sigmoid(_rand(rng, BH, 128, 8)).to(cuda)
+    calls = [lambda k: tba.window_half(x, w, b, ls1, bias, (32, 32), kernels=k),
+             lambda k: tba.stripe_half(x, anchor, w, b, ls1, ls2, b1, b2, (8, 16), 4,
+                                       kernels=k)]
+    new_w = _rand(rng, BC, 3 * BCH, std=0.05).to(cuda)
+    with torch.no_grad():
+        first = [call(True) for call in calls]
+        w.data.copy_(new_w)
+        for call, y0 in zip(calls, first):
+            y = call(True)
+            assert not torch.equal(y, y0)
+            _assert_close(y, call(False), torch.bfloat16)
 
 
 # ------------------------------------------------- fused engines (B5-B7)
