@@ -41,7 +41,17 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      256^2 forward timed); the repair of geometries no TPU kernel takes (a
      GRL-base dn 1080x1920 frame restored whole in engine v3, depth cut to
      one stage of four blocks); timing of each kernel.
-Every kernel path holds `block_attn.unrouted_halves` at 0.
+  Since slice 6: B1's bf16 launches take one fused tensor-core kernel and
+  are counted by route like B2-B4 (B1 is gated like them in bf16, at
+  GRL-S's, GRL-base's and head dim 64's widths); B1's comparison is shown
+  to be real (its launches counted, `got` and `want` distinct storage, its
+  output moving with w x 1.001); B6/B7 run one 3xTF32 tensor-core kernel,
+  held to fp32's 1e-4 in both input types beside the plain version's own
+  spread against a float64 product, also at head dim 64; one block of
+  2 + 2 heads of d = 64 per engine, kernels on against off, counts the
+  halves whose kernel does not take that head dim (`wide_halves`); B1-B4
+  under grad return the plain version's gradients.
+Every kernel path holds `block_attn.unrouted_halves` and `wide_halves` at 0.
 Then one JSON line of per-kernel results, the nvidia-smi line, and last the
 result line.  Exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
@@ -71,14 +81,17 @@ BF16_MAX_ERR = 1e-2        # bf16 outputs: a few ulps at |y| < 1
 # percent of a probability, so y moves by a fraction of the values it
 # averages.  Beside it the plain path's own spread is printed: the plain
 # path against itself with its projection summed in float64.
-ULP_GATED = ("window_half_large", "stripe_half", "stripe_a2w_large", "stripe_w2a_large")
+ULP_GATED = ("window_half", "window_half_large", "stripe_half", "stripe_a2w_large",
+             "stripe_w2a_large")
 FP32_TOL = 1e-4            # fp32: summation order only
 MODEL_FP32_MAX_ERR = 5e-4  # whole-model fp32 rounding-order drift
 MODEL_MIN_PSNR = 60.0      # bf16 whole model, kernels vs plain
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
-# FLOP/s by operand type (bf16 on tensor cores, fp32 on CUDA cores)
+# FLOP/s by operand type (bf16 on tensor cores, fp32 on CUDA cores); TF32
+# on tensor cores, whose three products a 3xTF32 product takes
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12
 REPLACES = {
     "window_half": "grlir/ops/pallas/block_attn.py:214",
     "stripe_half": "grlir/ops/pallas/block_attn.py:589",
@@ -154,11 +167,11 @@ def bound_ms(n_bytes: float, flops: float, dtype):
 
 KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
                 "anchor_units_kernel", "attend_kernel", "tokens_major_kernel",
-                "cosine_attention_kernel", "mma_attend_kernel", "mma_project_kernel",
-                "pad_rows_kernel", "mma_stripe_resident_kernel")
+                "cosine_tf32_kernel", "mma_attend_kernel", "mma_project_kernel",
+                "pad_rows_kernel", "mma_stripe_resident_kernel", "window_half_mma_kernel")
 # kernels of the tensor-core routes: bf16 only, not templated on the type
 BF16_KINDS = ("mma_attend_kernel", "mma_project_kernel", "pad_rows_kernel",
-              "mma_stripe_resident_kernel")
+              "mma_stripe_resident_kernel", "window_half_mma_kernel")
 
 
 def ptxas_report(log: str):
@@ -175,7 +188,10 @@ def ptxas_report(log: str):
             bf16 = first.startswith("I13__nv_bfloat16") or kind in BF16_KINDS
             # mma_attend_kernel<true>: B3's deferred normalisation
             deferred = ", deferred" if first.startswith("ILb1E") else ""
-            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}{deferred}>"
+            # the head's columns in shared memory (B1's and B6/B7's tiles)
+            cols = first.split("Li", 1)[1].split("E", 1)[0] if "Li" in first else ""
+            cols = f", {cols} columns" if cols.isdigit() else ""
+            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}{deferred}{cols}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "registers" in line and name:
@@ -241,6 +257,13 @@ def main() -> int:
     def rnd(*shape, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dev)
 
+    # the inputs of checks added since slice 6 come from a generator of
+    # their own, so the earlier checks keep their inputs
+    g6 = torch.Generator().manual_seed(6)
+
+    def rnd6(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g6) * std).to(dev)
+
     # 1. device
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -294,9 +317,9 @@ def main() -> int:
         Cw, N = w.shape[1] // 3, win[0] * win[1]
         large = ba.window_route((H, W_), win, h) == "large"
 
-        def fn(t, k):
-            return ba.window_half(t, w, b, ls, bias, win, bands=bands, shift=shift,
-                                  kernels=k)
+        def fn(t, k, w_scale=1.0):
+            return ba.window_half(t, w * w_scale, b, ls, bias, win, bands=bands,
+                                  shift=shift, kernels=k)
 
         def lib(t):
             if shift:
@@ -405,23 +428,65 @@ def main() -> int:
             ba._project = plain_project
         return (other.float() - want.float()).abs().max().item()
 
+    def cosine64(q, k, v, ls, bias, mask):
+        """B6/B7's function in float64 on token-major q (.., Nq, d), k, v:
+        the spread of the plain fp32 version against it."""
+        h = q.shape[2]
+        un = [u.double() / u.double().square().sum(-1, keepdim=True).clamp_min(1e-24).sqrt()
+              for u in (q, k)]
+        s_ = ba._scale(ls).double().reshape(h, 1, 1)
+        a = un[0] @ un[1].transpose(-1, -2) * s_ + bias.double()
+        if mask is not None:
+            a = a + mask.double()[:, None]
+        return torch.softmax(a, -1) @ v.double()
+
+    def fp32_gate(got, want):
+        """B6/B7 in either input type: |got - want| <= FP32_TOL (1 + |want|)
+        plus, for bf16 outputs, one bf16 ulp of |want| (both round only y);
+        returns (ok, the largest excess over FP32_TOL (1 + |want|))."""
+        err = (got.float() - want.float()).abs()
+        tol = FP32_TOL * (1 + want.float().abs())
+        if want.dtype == torch.bfloat16:
+            a = want.float().abs().clamp_min(2.0 ** -126)
+            tol = tol + torch.exp2(torch.floor(torch.log2(a)) - 7)
+        return bool((err <= tol).all()), (err - FP32_TOL * (1 + want.float().abs())).max().item()
+
     def run_cases(cases, max_err):
-        """Each case's kernel against its plain version, fp32 and bf16; a
-        kernel with two routes must take the route of the type."""
+        """Each case's kernel against its plain version, fp32 and bf16: one
+        launch of the kernel a call (on the route of the type where it has
+        two); B1's comparison shown real (C1)."""
         with torch.no_grad():
-            for kname, label, (fn, _, _), x in cases:
+            for kname, label, (fn, _, _, *spread), x in cases:
+                kfn = next(k for k in all_kernels if k.__name__ == kname)
                 for dtype in (torch.float32, torch.bfloat16):
                     xt = x.to(dtype)
-                    before = routes()
+                    before, n0 = routes(), kfn.launches
                     got, want = fn(xt, True), fn(xt, False)
                     torch.cuda.synchronize()
+                    check(kfn.launches == n0 + 1, f"{kname} {label} {dtype}: launches")
                     if kname in before:
                         route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
                         before[kname][route] += 1
                         check(routes() == before, f"{kname} {label} {dtype}: routes {routes()}")
                     err = (got.float() - want.float()).abs().max().item()
                     max_err[kname] = max(max_err.get(kname, 0.0), err)
-                    if dtype == torch.float32:
+                    if kname == "window_half":
+                        moved = fn(xt, True, w_scale=1.001)
+                        torch.cuda.synchronize()
+                        dmove = (moved.float() - got.float()).abs().max().item()
+                        distinct = got.data_ptr() != want.data_ptr()
+                        print(f"[C1] window_half {label} {str(dtype)[6:]}: launches +1 (count "
+                              f"{n0} -> {kfn.launches - 1}), got/want distinct storage "
+                              f"{distinct} ({got.data_ptr():#x} vs {want.data_ptr():#x}), "
+                              f"max|y(w x 1.001) - y(w)| {dmove:.3e}, max|got - want| {err:.3e}")
+                        check(distinct and dmove > 0, f"C1 {label} {dtype}")
+                    if kname.startswith("fused_"):
+                        ok, excess = fp32_gate(got, want)
+                        f64 = (want.float() - spread[0](xt).float()).abs().max().item()
+                        tol = (f"fp32 gate atol/rtol {FP32_TOL} plus one bf16 ulp of |plain| for "
+                               f"bf16 y, largest excess over atol/rtol {excess:.3e}; plain vs "
+                               f"float64 {f64:.3e}")
+                    elif dtype == torch.float32:
                         ok = torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
                         tol = f"atol {FP32_TOL} rtol {FP32_TOL}"
                     elif kname in ULP_GATED:
@@ -438,14 +503,20 @@ def main() -> int:
                     check(bool(ok) and math.isfinite(err), f"{kname} {label} {dtype}")
 
     def time_case(kname, label, case, x, runs, warmup, timing):
-        fn, lib, cost = case
+        fn, lib, cost = case[:3]
         xb = x.to(torch.bfloat16)
         with torch.no_grad():
             k_ms, p_ms = ab_ms(lambda: fn(xb, False), lambda: fn(xb, True), runs, warmup)
             l_ms = time_ms(lambda: lib(xb), runs, warmup)
-        b_ms, b_by = bound_ms(*cost(xb), COMPUTE_TYPE[kname.split(" ")[0]])
+        n_bytes, flops = cost(xb)
+        b_ms, b_by = bound_ms(n_bytes, flops, COMPUTE_TYPE[kname.split(" ")[0]])
+        tf32 = ""
+        if COMPUTE_TYPE[kname.split(" ")[0]] == torch.float32:
+            t3 = max(n_bytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS) * 1e3
+            tf32 = f", bound as 3 TF32 products {t3:.4f} ms"
         print(f"[time] {kname} {label} bf16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"library composition {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{smi}]")
+              f"library composition {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){tf32} "
+              f"[{smi}]")
         timing[kname] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                          "bound_ms": b_ms, "bound_by": b_by}
 
@@ -459,15 +530,15 @@ def main() -> int:
         return {k.__name__: launched.get(k.__name__, 0) for k in all_kernels}
 
     def reset_counts():
-        """Every launch count, B4's counts by route and
-        block_attn.unrouted_halves to 0."""
+        """Every launch count, the counts by route and
+        block_attn.unrouted_halves and wide_halves to 0."""
         ba.reset_launches()
         for k in all_kernels:
             k.launches = 0
 
     def routes():
-        """Launches by route of B2, B3 and B4 (bf16 on tensor cores, fp32 on
-        CUDA cores)."""
+        """Launches by route of B1-B4 (bf16 on tensor cores, fp32 on CUDA
+        cores)."""
         return {k.__name__: dict(k.route_launches) for k in ba.ROUTED}
 
     def expect_routes(route="tensor_core", **launched):
@@ -506,6 +577,13 @@ def main() -> int:
                                     df, geom[f"bands_{key}"] if shifted else None,
                                     geom[f"bands_{key}_a"] if shifted else None,
                                     shift if shifted else (0, 0)), x))
+        # B1 at two heads of d = 64 (C = 256): the bf16 kernel holds one
+        # head's w at a time
+        x64 = rnd6(1, *hw, 256)
+        w64, b64 = rnd6(256, 3 * 128, std=0.02 * math.sqrt(128 / 256)), rnd6(3 * 128, std=0.02)
+        for s in (0, 4):
+            cases_s.append(("window_half", f"window {win} shift {s} h2 d64", window_case(
+                x64, w64, b64, ls1, bias_w, win, geom["bands_w"] if s else None, s), x64))
         run_cases(cases_s, max_err)
 
     with Phase("GRL-S model"):
@@ -522,12 +600,13 @@ def main() -> int:
             per_fwd, per_route = counts(), routes()
             y_p = plain(lr)
         print(f"[model] GRL-S x4 bf16 {GRL_S_HW}^2: out {tuple(y_k.shape)}, launches "
-              f"{per_fwd} per forward, B2/B3/B4 by route {per_route}, unrouted halves "
+              f"{per_fwd} per forward, B1-B4 by route {per_route}, unrouted halves "
               f"{ba.unrouted_halves}, PSNR kernels vs plain {psnr(y_k, y_p):.2f} dB, rel L2 "
               f"{rel_l2(y_k, y_p):.3e}")
         check(per_fwd == expect(window_half=n_blocks, stripe_half=n_blocks)
-              and ba.unrouted_halves == 0, f"GRL-S launches {per_fwd}")
-        check(per_route == expect_routes(stripe_half=n_blocks), f"GRL-S bf16 routes {per_route}")
+              and ba.unrouted_halves == 0 and ba.wide_halves == 0, f"GRL-S launches {per_fwd}")
+        check(per_route == expect_routes(window_half=n_blocks, stripe_half=n_blocks),
+              f"GRL-S bf16 routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
               and bool(torch.isfinite(y_k).all()), "bf16 model output")
         check(psnr(y_k, y_p) >= MODEL_MIN_PSNR, f"bf16 PSNR < {MODEL_MIN_PSNR} dB")
@@ -540,9 +619,10 @@ def main() -> int:
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
             per_route = routes()
         print(f"[model] GRL-S x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-              f"(max {MODEL_FP32_MAX_ERR}), B2/B3/B4 by route {per_route}")
+              f"(max {MODEL_FP32_MAX_ERR}), B1-B4 by route {per_route}")
         check(err32 <= MODEL_FP32_MAX_ERR, "fp32 model kernels vs plain")
-        check(per_route == expect_routes("cuda_core", stripe_half=n_blocks),
+        check(per_route == expect_routes("cuda_core", window_half=n_blocks,
+                                         stripe_half=n_blocks),
               f"GRL-S fp32 routes {per_route}")
         del m32, p32
 
@@ -577,11 +657,12 @@ def main() -> int:
         check(got == expect(window_half=4 * n_blocks, stripe_half=4 * n_blocks)
               and unrouted == 0,
               f"GRL-S served launches {got} != 4 forwards x {n_blocks}")
-        check(got_routes == expect_routes(stripe_half=4 * n_blocks),
+        check(got_routes == expect_routes(window_half=4 * n_blocks, stripe_half=4 * n_blocks),
               f"GRL-S served routes {got_routes}")
 
     with Phase("GRL-S timing"):
-        for kname, label, case, xc in (cases_s[1], cases_s[-1]):
+        last_stripe = [c for c in cases_s if c[0] == "stripe_half"][-1]
+        for kname, label, case, xc in (cases_s[1], last_stripe):
             time_case(kname, label, case, xc, 10, 3, timing)
         with torch.no_grad():
             k_ms, p_ms = ab_ms(lambda: plain(lr), lambda: model(lr), 10, 3)
@@ -639,8 +720,9 @@ def main() -> int:
         x = rnd(1, *hw, C)
         anchor = rnd(1, hw[0] // 4, hw[1] // 4, C // 2)
         bias8 = 16 * torch.sigmoid(rnd(heads, 64, 64))
-        cases_b.append(("window_half", "window (8, 8) shift 4 h3 d30", window_case(
-            x, w, b, ls1, bias8, (8, 8), geom["bands_w"], 4), x))
+        for s in (0, 4):
+            cases_b.append(("window_half", f"window (8, 8) shift {s} h3 d30", window_case(
+                x, w, b, ls1, bias8, (8, 8), geom["bands_w"] if s else None, s), x))
         stripe, shift = get_stripe_info(base_zoo.stripe_size, base_zoo.stripe_groups, True, hw)
         n1, n2 = stripe[0] * stripe[1], (stripe[0] // 4) * (stripe[1] // 4)
         cases_b.append(("stripe_half", f"stripe {stripe} shift {shift} h3 d30", stripe_case(
@@ -669,7 +751,7 @@ def main() -> int:
             mem["plain"] = torch.cuda.max_memory_allocated() / 2**30
         p = psnr(y_k, y_p)
         print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 (window 32, stripes 64x64, df 2): "
-              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, B2/B3/B4 by route "
+              f"out {tuple(y_k.shape)}, launches {per_fwd} per forward, B1-B4 by route "
               f"{per_route}, PSNR kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}, "
               f"max_memory_allocated kernels {mem['kernels']:.2f} GiB, plain "
               f"{mem['plain']:.2f} GiB")
@@ -691,7 +773,7 @@ def main() -> int:
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
             per_route = routes()
         print(f"[model] GRL-base x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
-              f"(max {MODEL_FP32_MAX_ERR}), B2/B3/B4 by route {per_route}")
+              f"(max {MODEL_FP32_MAX_ERR}), B1-B4 by route {per_route}")
         check(err32 <= MODEL_FP32_MAX_ERR, "GRL-base fp32 kernels vs plain")
         check(per_route == expect_routes("cuda_core", **base_launches),
               f"GRL-base fp32 routes {per_route}")
@@ -842,7 +924,15 @@ def main() -> int:
             n = t.numel() * t.element_size() * 4 // 3 + nbytes(bias, bands)
             return n, 4 * B_ * nW * N * N * (C3 // 3)
 
-        return fn, lib, cost
+        def f64(t):
+            B_, nW, C3, N = t.shape
+            q, k, v = (p.reshape(B_, nW, h, C3 // (3 * h), N).transpose(-1, -2)
+                       for p in t.chunk(3, 2))
+            mask = None if bands is None else dense_mask(bands, bands)
+            y = cosine64(q, k, v, ls, bias, mask)
+            return y.transpose(-1, -2).reshape(B_, nW, C3 // 3, N)
+
+        return fn, lib, cost, f64
 
     def cosine_case(k, v, ls, bias, mask, pack=0):
         """B7a (pack 0) or B7b on token-major q (B, nW, h, N1, d), k, v;
@@ -867,7 +957,10 @@ def main() -> int:
             n = 2 * t.numel() * it + 2 * k.numel() * it + nbytes(bias, mask)
             return n, 4 * B_ * nW * h * N1 * N2 * d
 
-        return fn, lib, cost
+        def f64(t):
+            return cosine64(t, k.to(t.dtype), v.to(t.dtype), ls, bias, mask)
+
+        return fn, lib, cost, f64
 
     s_cfg = zoo.GRL_SMALL
     with Phase("fused engines kernels"):
@@ -917,6 +1010,22 @@ def main() -> int:
                             cosine_case(k_t, v_t, ls, b1, dense_mask(bsa, bs)), a_t))
             cases_f.append(("fused_cosine_attention", f"{lab} w2a",
                             cosine_case(a_t, x1_t, ls, b2, dense_mask(bs, bsa)), q_t))
+        # the same kernel at head dim 64 (its 64-column tiles): B6 and B7b on
+        # GRL-S's windows, B7a on its 128^2 H stripes
+        qkv64 = rnd6(1, nw, 3 * heads * 64, n, std=0.25)
+        cases_f.append(("fused_window_attention_qkv", "GRL-S windows (8, 8) shift 4 d64",
+                        window_qkv_case(ls, bias_w, bands_w), qkv64))
+        cases_f.append(("fused_cosine_attention_packed", "GRL-S windows (8, 8) shift 4, P 4 d64",
+                        cosine_case(rnd6(1, nw, heads, n, 64), rnd6(1, nw, heads, n, 64, std=0.25),
+                                    ls, bias_w, dense_mask(bands_w, bands_w), pack=4),
+                        rnd6(1, nw, heads, n, 64)))
+        bs, bsa = geom128["bands_sh"], geom128["bands_sh_a"]
+        (ns, n1), n2 = bs.shape, bsa.shape[1]
+        cases_f.append(("fused_cosine_attention", "GRL-S 128^2 stripes sh shifted w2a d64",
+                        cosine_case(rnd6(1, ns, heads, n2, 64),
+                                    rnd6(1, ns, heads, n2, 64, std=0.25), ls,
+                                    16 * torch.sigmoid(rnd6(heads, n1, n2)), dense_mask(bs, bsa)),
+                        rnd6(1, ns, heads, n1, 64)))
         # B5: GRL-base at its eval geometry, 256^2 (3 heads of d = 30)
         ls3 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
         gb = geometry_tensors(sr_cfg.geometry_config, (BASE_HW, BASE_HW), dev)
@@ -1067,16 +1176,96 @@ def main() -> int:
         p = psnr(out, ref)
         print(f"[repair] GRL-base dn 1080x1920 whole, 4 blocks, engine v3 bf16: out "
               f"{tuple(out.shape)} in {rp_s:.2f} s, finite {finite}, launches {got}, "
-              f"B2/B3/B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
+              f"B1-B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
               f"kernels=False {p:.2f} dB")
         check(unrouted == 2 and got == expect(window_half=4, stripe_a2w_large=2,
                                               stripe_w2a_large=2),
               f"repair launches {got}, unrouted halves {unrouted}")
-        check(got_routes == expect_routes(stripe_a2w_large=2, stripe_w2a_large=2),
+        check(got_routes == expect_routes(window_half=4, stripe_a2w_large=2,
+                                          stripe_w2a_large=2),
               f"repair routes {got_routes}")
         check(tuple(out.shape) == (1, 1080, 1920, 3) and finite, "repair output")
         check(p >= MODEL_MIN_PSNR, "repair: PSNR vs kernels=False")
         del rp, rp_plain, out, ref
+
+    with Phase("C2: head dim 64 blocks"):
+        # one GRL block of 2 + 2 heads of d = 64 (dim 256) per engine at
+        # GRL-S's geometry on 256^2, bf16, kernels on against off: B1 or B6
+        # take the window half; the stripe half's kernel (B2's bf16 route,
+        # B5 for 8 x 64 stripes) holds 32 columns and runs plain, counted
+        # in wide_halves
+        from grlir_torch.models.blocks import EfficientMixAttnTransformerBlock
+        geom_s = geometry_tensors(s_cfg.geometry_config, (GRL_S_HW, GRL_S_HW), dev)
+        x = rnd6(1, GRL_S_HW, GRL_S_HW, 256)
+        for engine, want, want_routes in (
+                ("v3", expect(window_half=1), expect_routes(window_half=1)),
+                ("fused", expect(fused_window_attention_qkv=1), expect_routes())):
+            blk = init_weights(EfficientMixAttnTransformerBlock(
+                256, 2, 2, s_cfg.window_size, True, s_cfg.stripe_size, s_cfg.stripe_groups,
+                "H", True, 2.0, s_cfg.anchor_window_down_factor, engine=engine),
+                torch.Generator().manual_seed(5)).eval().to(dev)
+            with torch.no_grad():
+                reset_counts()
+                y_k = blk(x.bfloat16(), geom_s, torch.bfloat16, kernels=True)
+                torch.cuda.synchronize()
+                got, got_routes, wide = counts(), routes(), ba.wide_halves
+                y_p = blk(x.bfloat16(), geom_s, torch.bfloat16, kernels=False)
+            r = rel_l2(y_k, y_p)
+            print(f"[C2] block 2+2 heads of d 64, engine {engine}, bf16 {GRL_S_HW}^2: launches "
+                  f"{ {k: n for k, n in got.items() if n} }, routes {got_routes}, wide halves "
+                  f"{wide}, unrouted halves {ba.unrouted_halves}, rel L2 kernels vs plain "
+                  f"{r:.3e} (max 1e-2), finite {bool(torch.isfinite(y_k).all())}")
+            check(got == want and got_routes == want_routes and wide == 1
+                  and ba.unrouted_halves == 0, f"C2 engine {engine} launches {got}, wide {wide}")
+            check(bool(torch.isfinite(y_k).all()) and r <= 1e-2, f"C2 engine {engine} output")
+            del blk
+
+    with Phase("C3: kernels under grad"):
+        # B1-B4 with kernels on under grad: the kernel runs forward, the
+        # backward is the plain version's, so every operand's gradient
+        # equals kernels=False's; fp32 and bf16, small shapes
+        def grad_case(kind, dtype):
+            w_, b_ = rnd6(64, 3 * 96, std=0.05), rnd6(3 * 96, std=0.05)
+            l1 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
+            if kind in ("window_half", "window_half_large"):
+                win_ = (8, 8) if kind == "window_half" else (32, 32)
+                size = (32, 32) if kind == "window_half" else (64, 64)
+                n_ = win_[0] * win_[1]
+                g_ = geometry_tensors(replace(s_cfg.geometry_config, window_size=win_),
+                                      size, dev)
+                args = [rnd6(1, *size, 64).to(dtype), w_, b_, l1,
+                        16 * torch.sigmoid(rnd6(3, n_, n_))]
+                return args, lambda a, k: ba.window_half(*a, win_, g_["bands_w"], win_[0] // 2,
+                                                         kernels=k)
+            stripe, df_ = ((8, 16), 4) if kind == "stripe_half" else ((64, 64), 2)
+            size = (32, 64) if kind == "stripe_half" else (128, 128)
+            n1_, n2_ = stripe[0] * stripe[1], (stripe[0] // df_) * (stripe[1] // df_)
+            args = [rnd6(1, *size, 64).to(dtype),
+                    rnd6(1, size[0] // df_, size[1] // df_, 96).to(dtype), w_, b_, l1,
+                    l1 * 0.9, 16 * torch.sigmoid(rnd6(3, n2_, n1_)),
+                    16 * torch.sigmoid(rnd6(3, n1_, n2_))]
+            return args, lambda a, k: ba.stripe_half(*a, stripe, df_, kernels=k)
+
+        for kind, tag in (("window_half", "B1"), ("window_half_large", "B3"),
+                          ("stripe_half", "B2"), ("stripe_a2w_large", "B4a + B4b")):
+            for dtype in (torch.float32, torch.bfloat16):
+                args, call = grad_case(kind, dtype)
+                grads, ran = [], []
+                for kern in (True, False):
+                    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+                    reset_counts()
+                    y = call(leaves, kern)
+                    ran.append(sum(counts().values()))
+                    (y.float() * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+                     ).sum().backward()
+                    grads.append([t.grad.float() for t in leaves])
+                worst = max(((g - h).abs().max() / h.abs().max().clamp_min(1e-30)).item()
+                            for g, h in zip(*grads))
+                n_k = {"stripe_a2w_large": 2}.get(kind, 1)
+                print(f"[C3] {tag} {str(dtype)[6:]}: launches under grad {ran[0]} (plain "
+                      f"{ran[1]}), every operand's gradient vs kernels=False: largest "
+                      f"max|diff| / max|grad| {worst:.3e}")
+                check(ran == [n_k, 0] and worst <= 1e-5, f"C3 {tag} {dtype}")
 
     with Phase("fused engines timing"):
         # one shape a kernel for the per-kernel line (the shifted shapes of

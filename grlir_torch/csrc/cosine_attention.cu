@@ -1,4 +1,4 @@
-// Cosine attention of windows and stripes of up to 600 keys, all in fp32.
+// Cosine attention of windows and stripes in fp32, on tensor cores.
 //
 // Replaces three Pallas kernels of grlir/ops/pallas/attention.py, each a fused cosine
 // attention on operands projected beforehand:
@@ -15,25 +15,36 @@
 // after the product, then the fp32 bias and the mask; a normalised fp32 softmax; its
 // product with v in fp32.  Only y is rounded, to the input type.
 //
-// One block per (window, head, 32 query rows).  The window's keys (unit-normed) and
-// values stay resident in shared memory in fp32, zero-padded to 32 columns.  Each lane of
-// a warp holds one query row in registers; for the logits and for the product with v the
-// 8 warps take the keys in turn (one float4 broadcast from shared memory per 4 FMAs); one
-// warp per row takes the softmax.  Operands are read through element strides (window,
-// head, token, channel), so B6's channel-major qkv and the stripe engine's d-major views
-// are read where they lie, without a copy.
+// One block of 4 warps per (window, head, 64 query rows), 16 rows a warp, on tensor cores
+// with fp32 accuracy ("3xTF32", the split of CUTLASS's fast fp32 GEMMs): every operand x of
+// a product is split into TF32 halves, big = tf32(x) and small = tf32(x - big), and each
+// product runs as three mma.sync.m16n8k8 TF32 products, a_big b_small + a_small b_big +
+// a_big b_big, summed in fp32 (about 21 of fp32's 24 bits; one TF32 product alone keeps 11,
+// a visible change of the probabilities at a logit scale of 100).  The block's q rows are
+// unit-normed once in fp32 and split into A fragments held in registers.  Keys and values
+// stream through shared memory in chunks of 64: each chunk's keys are unit-normed and
+// split, its values split, once per block.  Pass 1 folds each row's max and sum over the
+// chunks; pass 2 recomputes the logits with the same sequence (bit-equal) and forms the
+// normalised probabilities p = exp(s - max) / sum in registers, where the accumulator
+// layout of q k^T serves as the A fragments of p v without a shuffle: key 2c of an 8-key
+// tile takes the product's column c and key 2c + 1 column c + 4, and v's rows are read in
+// that order.  One chunk (N <= 64, B6's and B7b's windows) is one pass: its logits stay in
+// registers.  Operands are read through element strides (window, head, token, channel),
+// so B6's channel-major qkv and the stripe engine's d-major views are read where they lie,
+// without a copy.  Head dims up to 64 (32 or 64 columns in shared memory, zeros past d);
+// any number of keys.
 //
-// What bounds it on an H100: FMAs on CUDA cores.  The TPU kernels compute in fp32, so the
-// work is fp32 (2 Nq Nk d FMAs a window and head against 67 TFLOP/s), not the bf16 tensor
-// rate; the bytes are few (q, k, v and y once, the bias and mask from L2).  At Nk = 256 and
-// d = 32 a whole window's logits (256 KB) would not fit a block's 227 KB, hence the 32-row
-// tiles; each row tile of a window reads its keys and values again, from L2.
+// What bounds it on an H100: the operations at B6's GRL-S windows (2 Nq Nk d multiply-adds
+// for the logits and as many for p v, a window and head): 1.07 GFLOP a call, 0.016 ms at
+// fp32's 67 TFLOP/s, 0.0065 ms as three TF32 products at 495 TFLOP/s; the bytes (q, k, v
+// and y once, the bias and mask from L2) come next.
 #include "large_attn.cuh"
+#include "mma_util.cuh"
 
 namespace grlir {
 namespace {
 
-// Operands of cosine_attention_kernel.  q, k, v, y: (groups, heads, Nq|Nk, d) read and
+// Operands of cosine_tf32_kernel.  q, k, v, y: (groups, heads, Nq|Nk, d) read and
 // written through element strides s[operand][window, head, token, channel].  scale
 // (heads,); bias (heads, Nq, Nk) fp32; mask (windows, Nq, Nk) fp32 or null; bands
 // (windows, Nq) shift-band ids (Nq == Nk) or null; window g reads row g % windows.
@@ -50,24 +61,86 @@ struct CosArgs {
   int groups, windows, heads, d, Nq, Nk;
 };
 
-// floats of shared memory: keys and values (reused for the cross-warp sum), then 32 rows
-// of logits at an odd stride
-__host__ __device__ inline int kv_floats(int Nk) {
-  return 2 * Nk * kDP > kWarps * kDP * kRows ? 2 * Nk * kDP : kWarps * kDP * kRows;
-}
-__host__ __device__ inline int logit_ld(int Nk) { return Nk | 1; }
+constexpr int kCosThreads = 128;  // 4 warps
+constexpr int kCosRows = 64;      // query rows a block: 16 a warp
+constexpr int kCosKeys = 64;      // keys a chunk
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cosine_attention_kernel(CosArgs a) {
-  extern __shared__ float smem[];
-  const int Nk = a.Nk, d = a.d, ld = logit_ld(Nk);
-  float* ks = smem;                   // [Nk][kDP] unit-normed keys
-  float* vs = ks + Nk * kDP;          // [Nk][kDP] values
-  float* sc = smem + kv_floats(Nk);   // [kRows][ld] logits, then probabilities
+// floats of shared memory: q rows, then the big and small halves of a chunk's keys and
+// values, then the chunk's key band ids; rows of DP + 4 (the fragment reads of a quad
+// land on distinct banks)
+template <int DP>
+constexpr int cos_smem_floats() {
+  return (kCosRows + 4 * kCosKeys) * (DP + 4) + kCosKeys;
+}
+
+// rows t0..t0+63 of an operand (element strides st) into dst (rows of DP + 4), zeros past
+// n rows and past d columns; tokens fastest when they are contiguous in memory
+template <typename T, int DP>
+__device__ void load_rows(float* dst, const T* src, const long long* st, int t0, int n,
+                          int d) {
+  constexpr int ld = DP + 4;
+  const bool tok_fast = st[2] == 1;
+#pragma unroll 8
+  for (int i = threadIdx.x; i < 64 * DP; i += kCosThreads) {
+    const int t = tok_fast ? i % 64 : i / DP, e = tok_fast ? i / 64 : i % DP;
+    dst[t * ld + e] = (t0 + t < n && e < d) ? to_f(src[(t0 + t) * st[2] + e * st[3]]) : 0.f;
+  }
+}
+
+// unit-norm the 64 rows of raw (rows of DP + 4) as t * rsqrt(max(sum t^2, 1e-24)), one warp
+// a row; into raw itself (big null) or split into big and small (small may be raw)
+template <int DP>
+__device__ void norm_rows(float* raw, unsigned* big, unsigned* small) {
+  constexpr int ld = DP + 4;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gh = blockIdx.y, g = gh / a.heads, hh = gh % a.heads;
-  const int row0 = blockIdx.x * kRows;
+  for (int r = warp; r < 64; r += kCosThreads / 32) {
+    float x[DP / 32];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < DP / 32; ++i) {
+      x[i] = raw[r * ld + lane + 32 * i];
+      ss = fmaf(x[i], x[i], ss);
+    }
+    const float inv = rsqrtf(fmaxf(warp_sum(ss), 1e-24f));
+#pragma unroll
+    for (int i = 0; i < DP / 32; ++i) {
+      const int at = r * ld + lane + 32 * i;
+      if (big) {
+        split_tf32(x[i] * inv, big[at], small[at]);
+      } else {
+        raw[at] = x[i] * inv;
+      }
+    }
+  }
+}
+
+// split each value of the 64 rows of raw (rows of DP + 4) into big and small (small may be
+// raw)
+template <int DP>
+__device__ void split_rows(const float* raw, unsigned* big, unsigned* small) {
+  constexpr int ld = DP + 4;
+  for (int i = threadIdx.x; i < 64 * DP; i += kCosThreads) {
+    const int at = (i / DP) * ld + i % DP;
+    split_tf32(raw[at], big[at], small[at]);
+  }
+}
+
+// Cosine attention of 64 query rows of one (window, head); see the note at the top.
+// Grid (groups * heads, ceil(Nq / 64)).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kCosThreads)
+cosine_tf32_kernel(CosArgs a) {
+  constexpr int ld = DP + 4, KS = DP / 8;  // k-steps of q k^T = column tiles of p v
+  extern __shared__ __align__(16) float cs[];
+  float* qs = cs;                                                  // [64][ld] q rows
+  unsigned* kb = reinterpret_cast<unsigned*>(qs + kCosRows * ld);  // [64][ld] keys, big
+  unsigned* ksm = kb + kCosKeys * ld;                              // [64][ld] keys, small
+  unsigned* vb = ksm + kCosKeys * ld;                              // [64][ld] values, big
+  unsigned* vsm = vb + kCosKeys * ld;                              // [64][ld] values, small
+  int* bks = reinterpret_cast<int*>(vsm + kCosKeys * ld);          // [64] key band ids
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, gr = lane / 4, qd = lane % 4;
+  const int gh = blockIdx.x, g = gh / a.heads, hh = gh % a.heads, row0 = blockIdx.y * kCosRows;
+  const int Nq = a.Nq, Nk = a.Nk, d = a.d, win = g % a.windows;
   const long long* sq = a.s[0];
   const long long* sk = a.s[1];
   const long long* sv = a.s[2];
@@ -75,126 +148,165 @@ cosine_attention_kernel(CosArgs a) {
   const T* qp = static_cast<const T*>(a.q) + g * sq[0] + hh * sq[1];
   const T* kp = static_cast<const T*>(a.k) + g * sk[0] + hh * sk[1];
   const T* vp = static_cast<const T*>(a.v) + g * sv[0] + hh * sv[1];
-
-  // 1. keys and values to shared memory (tokens fastest when they are contiguous)
-  const bool tok_fast = sk[2] == 1;
-  for (int i = threadIdx.x; i < Nk * kDP; i += kThreads) {
-    const int t = tok_fast ? i % Nk : i / kDP, e = tok_fast ? i / Nk : i % kDP;
-    const bool in = e < d;
-    ks[t * kDP + e] = in ? to_f(kp[t * sk[2] + e * sk[3]]) : 0.f;
-    vs[t * kDP + e] = in ? to_f(vp[t * sv[2] + e * sv[3]]) : 0.f;
-  }
-  // this lane's query row, unit-normed in registers
-  const int r = row0 + lane;
-  float q[kDP], acc[kDP];
-  float ss = 0.f;
-#pragma unroll
-  for (int e = 0; e < kDP; ++e) {
-    q[e] = (r < a.Nq && e < d) ? to_f(qp[r * sq[2] + e * sq[3]]) : 0.f;
-    ss = fmaf(q[e], q[e], ss);
-    acc[e] = 0.f;
-  }
-  const float qinv = rsqrtf(fmaxf(ss, 1e-24f));
-#pragma unroll
-  for (int e = 0; e < kDP; ++e) q[e] *= qinv;
-  __syncthreads();
-  // 2. unit-norm the keys: one warp per key, one lane per channel
-  for (int t = warp; t < Nk; t += kWarps) {
-    const float x = ks[t * kDP + lane];
-    ks[t * kDP + lane] = x * rsqrtf(fmaxf(warp_sum(x * x), 1e-24f));
-  }
-  __syncthreads();
-
-  // 3. logits: lane = query row, warps take the keys in turn
-  for (int t = warp; t < Nk; t += kWarps) {
-    const float4* k4 = reinterpret_cast<const float4*>(ks + t * kDP);
-    float s = 0.f;
-#pragma unroll
-    for (int e4 = 0; e4 < kDP / 4; ++e4) {
-      const float4 kv = k4[e4];
-      s = fmaf(q[4 * e4], kv.x, s);
-      s = fmaf(q[4 * e4 + 1], kv.y, s);
-      s = fmaf(q[4 * e4 + 2], kv.z, s);
-      s = fmaf(q[4 * e4 + 3], kv.w, s);
-    }
-    sc[lane * ld + t] = s;
-  }
-  __syncthreads();
-
-  // 4. scale, bias, mask and a normalised softmax, one warp per row
-  const float scale = a.scale[hh];
-  const int win = g % a.windows;
   const int* band = a.bands ? a.bands + (size_t)win * Nk : nullptr;
-  for (int rr = warp; rr < kRows; rr += kWarps) {
-    const int row = row0 + rr;
-    if (row >= a.Nq) continue;
-    float* srow = sc + rr * ld;
-    const float* brow = a.bias + ((size_t)hh * a.Nq + row) * Nk;
-    const float* mrow = a.mask ? a.mask + ((size_t)win * a.Nq + row) * Nk : nullptr;
-    const int bq = band ? band[row] : 0;
-    float mx = -INFINITY;
-    for (int t = lane; t < Nk; t += 32) {
-      float x = __fadd_rn(__fmul_rn(srow[t], scale), brow[t]);
-      if (mrow) x = __fadd_rn(x, mrow[t]);
-      if (band && band[t] != bq) x = __fadd_rn(x, -100.f);
-      srow[t] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int t = lane; t < Nk; t += 32) {
-      const float e = expf(srow[t] - mx);
-      srow[t] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int t = lane; t < Nk; t += 32) srow[t] = __fdiv_rn(srow[t], sum);
-  }
-  __syncthreads();
+  const int nch = (Nk + kCosKeys - 1) / kCosKeys;
 
-  // 5. probabilities times v: lane = query row, warps take the keys in turn
-  for (int t = warp; t < Nk; t += kWarps) {
-    const float p = sc[lane * ld + t];
-    const float4* v4 = reinterpret_cast<const float4*>(vs + t * kDP);
+  // chunk c of the keys (unit-normed, split), with its values (split) when with_v
+  auto load_chunk = [&](int c, bool with_v) {
+    __syncthreads();  // the previous chunk is consumed
+    load_rows<T, DP>(reinterpret_cast<float*>(ksm), kp, sk, c * kCosKeys, Nk, d);
+    if (with_v) load_rows<T, DP>(reinterpret_cast<float*>(vsm), vp, sv, c * kCosKeys, Nk, d);
+    if (band && tid < kCosKeys) bks[tid] = c * kCosKeys + tid < Nk ? band[c * kCosKeys + tid] : 0;
+    __syncthreads();
+    norm_rows<DP>(reinterpret_cast<float*>(ksm), kb, ksm);
+    if (with_v) split_rows<DP>(reinterpret_cast<const float*>(vsm), vb, vsm);
+    __syncthreads();
+  };
+
+  // this block's q rows, unit-normed in fp32, and the warp's A fragments of them
+  load_rows<T, DP>(qs, qp, sq, row0, Nq, d);
+  __syncthreads();
+  norm_rows<DP>(qs, nullptr, nullptr);
+  load_chunk(0, true);
+  const int r0 = warp * 16 + gr;
+  unsigned qa_big[KS][4], qa_small[KS][4];
 #pragma unroll
-    for (int e4 = 0; e4 < kDP / 4; ++e4) {
-      const float4 vv = v4[e4];
-      acc[4 * e4] = fmaf(p, vv.x, acc[4 * e4]);
-      acc[4 * e4 + 1] = fmaf(p, vv.y, acc[4 * e4 + 1]);
-      acc[4 * e4 + 2] = fmaf(p, vv.z, acc[4 * e4 + 2]);
-      acc[4 * e4 + 3] = fmaf(p, vv.w, acc[4 * e4 + 3]);
+  for (int kk = 0; kk < KS; ++kk) {
+    const int col = kk * 8 + qd;
+    split_tf32(qs[r0 * ld + col], qa_big[kk][0], qa_small[kk][0]);
+    split_tf32(qs[(r0 + 8) * ld + col], qa_big[kk][1], qa_small[kk][1]);
+    split_tf32(qs[r0 * ld + col + 4], qa_big[kk][2], qa_small[kk][2]);
+    split_tf32(qs[(r0 + 8) * ld + col + 4], qa_big[kk][3], qa_small[kk][3]);
+  }
+  const int rows[2] = {row0 + r0, row0 + r0 + 8};
+  const int bq[2] = {band && rows[0] < Nq ? band[rows[0]] : 0,
+                     band && rows[1] < Nq ? band[rows[1]] : 0};
+  const float scale = a.scale[hh];
+
+  // s[j][e]: row rows[e / 2], key c * 64 + 8 j + 2 qd + e % 2 of chunk c: the fp32 product,
+  // times the scale, plus the bias, the mask or the band mask; -inf past Nk
+  float s[8][4];
+  auto logits = [&](int c) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int at = (j * 8 + gr) * ld + kk * 8 + qd;
+        mma_3xtf32(s[j], qa_big[kk], qa_small[kk], kb[at], kb[at + 4], ksm[at], ksm[at + 4]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rows[r];
+      const size_t brow = ((size_t)hh * Nq + row) * Nk, mrow = ((size_t)win * Nq + row) * Nk;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = j * 8 + 2 * qd + e, key = c * kCosKeys + kc;
+          float x = -INFINITY;
+          if (key < Nk && row < Nq) {
+            x = __fadd_rn(__fmul_rn(s[j][2 * r + e], scale), __ldg(a.bias + brow + key));
+            if (a.mask) x = __fadd_rn(x, __ldg(a.mask + mrow + key));
+            if (band && bks[kc] != bq[r]) x = __fadd_rn(x, -100.f);
+          }
+          s[j][2 * r + e] = x;
+        }
+    }
+  };
+
+  // pass 1: each row's max and sum over all keys (this thread's keys, then its quad's)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int c = 0; c < nch; ++c) {
+    if (c > 0) load_chunk(c, false);
+    logits(c);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      if (nch == 1) mx = quad_max(mx);  // one chunk: the row's max, then its exact sum
+      const float m_new = fmaxf(m[r], mx);
+      if (m_new == -INFINITY) continue;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        sum += expf(s[j][2 * r] - m_new) + expf(s[j][2 * r + 1] - m_new);
+      l[r] = l[r] * expf(m[r] - m_new) + sum;
+      m[r] = m_new;
     }
   }
-  __syncthreads();
-  // sum the warps' partial products (red[warp][e][row]) and write y
-  float* red = smem;
 #pragma unroll
-  for (int e = 0; e < kDP; ++e) red[(warp * kDP + e) * kRows + lane] = acc[e];
-  __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+    const float mq = quad_max(m[r]);
+    l[r] = quad_sum(m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mq));
+    m[r] = mq;
+  }
+
+  // pass 2: p = exp(s - max) / sum, then p v in 3xTF32
+  float o[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (nch > 1) {
+      load_chunk(c, true);
+      logits(c);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // A fragment of p for the keys of tile j: rows r0 (a0, a2) and r0 + 8 (a1, a3),
+      // keys 2 qd (a0, a1) and 2 qd + 1 (a2, a3)
+      unsigned pb[4], ps[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = __fdiv_rn(expf(s[j][e] - m[r]), l[r]);
+        split_tf32(p, pb[(e & 1) * 2 + r], ps[(e & 1) * 2 + r]);
+      }
+#pragma unroll
+      for (int n = 0; n < KS; ++n) {
+        const int at0 = (j * 8 + 2 * qd) * ld + n * 8 + gr, at1 = at0 + ld;
+        mma_3xtf32(o[n], pb, ps, vb[at0], vb[at1], vsm[at0], vsm[at1]);
+      }
+    }
+  }
+
+  // y in the caller's layout, rounded to T
   T* yp = static_cast<T*>(a.y) + g * sy[0] + hh * sy[1];
-  const bool y_tok_fast = sy[2] == 1;
-  for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
-    const int rr = y_tok_fast ? i % kRows : i / d, e = y_tok_fast ? i / kRows : i % d;
-    const int row = row0 + rr;
-    if (row >= a.Nq) continue;
-    float y = 0.f;
-    for (int w = 0; w < kWarps; ++w) y += red[(w * kDP + e) * kRows + rr];
-    yp[row * sy[2] + e * sy[3]] = from_f<T>(y);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Nq) continue;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * qd + e;
+        if (col < d) yp[rows[r] * sy[2] + col * sy[3]] = from_f<T>(o[n][2 * r + e]);
+      }
   }
 }
 
-// Launch cosine_attention_kernel; returns 0, -1 (d > 32 or shared memory) or a
-// cudaError_t.
-template <typename T>
-int launch_cosine(const CosArgs& a, cudaStream_t stream) {
-  if (a.d > kDP) return -1;
-  auto kernel = cosine_attention_kernel<T>;
-  const size_t smem = sizeof(float) * (kv_floats(a.Nk) + (size_t)kRows * logit_ld(a.Nk));
+// Launch cosine_tf32_kernel; returns 0, -1 (d > 64 or shared memory) or a cudaError_t.
+template <typename T, int DP>
+int launch_cosine_dp(const CosArgs& a, cudaStream_t stream) {
+  auto kernel = cosine_tf32_kernel<T, DP>;
+  const size_t smem = sizeof(float) * cos_smem_floats<DP>();
   const int err = set_smem(kernel, smem);
   if (err) return err;
-  const dim3 grid((a.Nq + kRows - 1) / kRows, a.groups * a.heads);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid(a.groups * a.heads, (a.Nq + kCosRows - 1) / kCosRows);
+  kernel<<<grid, kCosThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_cosine(const CosArgs& a, cudaStream_t stream) {
+  if (a.d <= 32) return launch_cosine_dp<T, 32>(a, stream);
+  if (a.d <= 64) return launch_cosine_dp<T, 64>(a, stream);
+  return -1;
 }
 
 int run_cosine(const void* q, const void* k, const void* v, void* y, const long long* st,
@@ -214,7 +326,7 @@ int run_cosine(const void* q, const void* k, const void* v, void* y, const long 
 // operands in x's type, then their element strides (window, head, token, channel): q's
 // four, then k's, v's and y's; scale (heads,) fp32; bias (heads, Nq, Nk) fp32; mask
 // (windows, Nq, Nk) fp32 or null; bands (windows, Nq) int32 or null.  Each returns 0, -1
-// (d > 32 or more keys than shared memory holds) or a cudaError_t.
+// (d > 64) or a cudaError_t.
 #define GRLIR_COSINE_ENTRY(name)                                                          \
   extern "C" int name(const void* q, const void* k, const void* v, void* y,              \
                       long long q0, long long q1, long long q2, long long q3, long long k0, \

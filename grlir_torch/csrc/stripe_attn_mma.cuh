@@ -45,6 +45,7 @@
 #include <stdint.h>
 
 #include "large_attn.cuh"
+#include "mma_util.cuh"
 
 namespace grlir {
 namespace {
@@ -57,86 +58,6 @@ constexpr int kMmaKeys = 64;        // keys a chunk
 constexpr int kLdK = kDP + 8;       // bf16 smem row of q/k/v: 80 B, ldmatrix without conflicts
 constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Asynchronous copies global -> shared of 16, 8 or 4 bytes; with valid
-// false nothing is read and the destination is zero-filled.
-// cp_async16_first reads the first `bytes` (0..16) and zero-fills the rest.
-__device__ __forceinline__ void cp_async16_first(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  cp_async16_first(dst, src, valid ? 16 : 0);
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += a b: a 16x16 (row), b 16x8 (col), bf16; c 16x8 fp32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16, lo in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// 2^x on the special-function unit, subnormal results flushed to zero:
-// a probability below 2^-126 adds nothing an fp32 sum keeps.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
 // times w plus b, unit-normed for the parts set in norm_mask, times
@@ -277,20 +198,45 @@ pad_rows_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, long long r
 // recomputes them with the same sequence, bit-equal, and multiplies the
 // exps by v.  One copy serves every kernel, so the two passes cannot drift.
 
-// s = q . k^T for the warp's rows (A fragments qa) and the chunk's keys
-// (rows of kLdK in shared memory); tiles of keys past nk are skipped (0).
-__device__ __forceinline__ void chunk_qk(const unsigned (&qa)[2][4], const bf16* ks, int nk,
+// s = q . k^T for the warp's rows (A fragments qa: KS k-steps of 16, a
+// head of 16 KS columns) and the chunk's keys (rows of 16 KS + 8 bf16 in
+// shared memory); tiles of keys past nk are skipped (0).
+template <int KS>
+__device__ __forceinline__ void chunk_qk(const unsigned (&qa)[KS][4], const bf16* ks, int nk,
                                          int lane, float (&s)[8][4]) {
+  constexpr int ld = KS * 16 + 8;
   const int mi = lane / 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     if (j * 8 >= nk) continue;
-    unsigned b[4];
-    ldmatrix_x4(b, ks + (j * 8 + lane % 8) * kLdK + mi * 8);
-    mma_bf16(s[j], qa[0], b[0], b[1]);
-    mma_bf16(s[j], qa[1], b[2], b[3]);
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 2) {
+      unsigned b[4];
+      ldmatrix_x4(b, ks + (j * 8 + lane % 8) * ld + kk * 16 + mi * 8);
+      mma_bf16(s[j], qa[kk], b[0], b[1]);
+      mma_bf16(s[j], qa[kk + 1], b[2], b[3]);
+    }
+  }
+}
+
+// s += bias[row][key] of an fp32 bias (the thread's rows r0 and r0 + 8 in
+// rows[0], rows[1], each pointing at the chunk's first key, or null past the
+// last query row) for the chunk's keys below nk.
+__device__ __forceinline__ void add_bias_f32(float (&s)[8][4], const float* const (&rows)[2],
+                                             int nk, int lane) {
+  const int qd = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rows[r]) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + 2 * qd + e;
+        if (key < nk) s[j][2 * r + e] += __ldg(rows[r] + key);
+      }
   }
 }
 
@@ -353,11 +299,13 @@ __device__ __forceinline__ void finish_rows(const float (&m)[2], const float (&l
 // Pass 2: o += p v over a chunk whose first nk keys are valid, p =
 // bf16(exp(s - max)) (kDeferred: the caller scales o by 1/sum) or
 // bf16(exp(s - max) / sum), rounded in the A-fragment layout of P v (key
-// tiles 2k, 2k+1 make k-step k); v rows of kLdK in shared memory.
-template <bool kDeferred>
+// tiles 2k, 2k+1 make k-step k); v rows of 8 NT + 8 bf16 in shared memory,
+// o NT tiles of 8 columns.
+template <bool kDeferred, int NT>
 __device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float (&mL)[2],
                                             const float (&inv_l)[2], const bf16* vs, int nk,
-                                            int lane, float (&o)[4][4]) {
+                                            int lane, float (&o)[NT][4]) {
+  constexpr int ld = NT * 8 + 8;
   const int mi = lane / 8;
   unsigned pa[4][4];
 #pragma unroll
@@ -375,9 +323,9 @@ __device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float 
   for (int kk = 0; kk < 4; ++kk) {
     if (kk * 16 >= nk) break;  // exps of keys past nk are 0
 #pragma unroll
-    for (int n = 0; n < 4; n += 2) {
+    for (int n = 0; n < NT; n += 2) {
       unsigned b[4];
-      ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * kLdK + n * 8 +
+      ldmatrix_x4_trans(b, vs + (kk * 16 + (mi & 1) * 8 + lane % 8) * ld + n * 8 +
                                (mi >> 1) * 8);
       mma_bf16(o[n], pa[kk], b[0], b[1]);
       mma_bf16(o[n + 1], pa[kk], b[2], b[3]);

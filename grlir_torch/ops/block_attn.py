@@ -11,18 +11,22 @@ hand-written in CUDA with a plain PyTorch version beside it:
   stripe, streamed bias (B4)  csrc/stripe_half_large.cu  stripe_a2w_large_ref,
                                                          stripe_w2a_large_ref
 
-B2, B3 and B4 take one of two routes by x's type, chosen before any
-launch: bf16 on tensor cores (csrc/stripe_attn_mma.cuh), fp32 on CUDA
-cores; each of their wrappers counts its launches by route in
-`route_launches`.  B1 runs on CUDA cores for both types.
+All four take one of two routes by x's type, chosen before any launch:
+bf16 on tensor cores (csrc/stripe_attn_mma.cuh; B1 one fused kernel), fp32
+on CUDA cores; each wrapper counts its launches by route in
+`route_launches`.
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
 version on any device.  A geometry that no TPU kernel takes raises
 NotImplementedError either way: the model routes such a half to its plain
 cosine attention (`grlir_torch.models.blocks`) before it gets here, and
-counts it in `unrouted_halves`.  The kernels have no backward yet, so with
-`kernels=True` an input that requires grad under grad mode raises.
+counts it in `unrouted_halves`; so does a head dim beyond the kernel's
+tiles (`window_kernel_takes`, `stripe_kernel_takes`), counted in
+`wide_halves`.  Under grad the kernels run forward and their backward is
+autograd of the plain version on the same inputs (`_PlainGrad`), as the JAX
+package's custom VJPs recompute their XLA twins
+(grlir/ops/pallas/block_attn.py:553-586).
 
 Every version pins the numerics of its TPU kernel: q, k and anchors are
 unit-normed as t * rsqrt(max(sum t^2, 1e-24)); the logit scale is
@@ -165,6 +169,8 @@ def _project(x, wqkv, bqkv, num_heads, mm, parts):
 
 
 def _check_inference(name: str, *tensors) -> None:
+    """Raise under grad for a kernel without a backward (B5-B7: the JAX
+    package has no VJP for them either)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -172,16 +178,58 @@ def _check_inference(name: str, *tensors) -> None:
             "torch.no_grad() or pass kernels=False")
 
 
+class _PlainGrad(torch.autograd.Function):
+    """Forward: a kernel's launch.  Backward: autograd of its plain version,
+    re-run on detached copies of the same inputs (the JAX package's custom
+    VJPs around B1-B4 recompute their XLA twins the same way)."""
+
+    @staticmethod
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.slots = [i for i, a in enumerate(args) if torch.is_tensor(a)]
+        ctx.args = [None if torch.is_tensor(a) else a for a in args]
+        ctx.save_for_backward(*(args[i] for i in ctx.slots))
+        return launch(*args)
+
+    @staticmethod
+    def backward(ctx, gy):
+        args = list(ctx.args)
+        wanted = []
+        for i, t in zip(ctx.slots, ctx.saved_tensors):
+            args[i] = t.detach().requires_grad_(ctx.needs_input_grad[2 + i])
+            if ctx.needs_input_grad[2 + i]:
+                wanted.append(i)
+        with torch.enable_grad():
+            y = ctx.plain(*args)
+            grads = torch.autograd.grad(y, [args[i] for i in wanted], gy,
+                                        allow_unused=True)
+        out = [None] * len(args)
+        for i, g in zip(wanted, grads):
+            out[i] = g
+        return (None, None, *out)
+
+
+def _launch(launch, plain, *args):
+    """launch(*args), differentiable through plain when grad mode is on and
+    a tensor argument requires grad."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(a) and a.requires_grad for a in args):
+        return _PlainGrad.apply(launch, plain, *args)
+    return launch(*args)
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
 def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
-              bias_dtype=torch.float32, parts: Optional[Tuple[int, int]] = None):
+              bias_dtype=torch.float32, parts: Optional[Tuple[int, int]] = None,
+              keep_w: bool = False):
     """Contiguous kernel operands on x's device: w in x's type, fp32 bias
     vector and scales, position biases in bias_dtype, int32 band ids.  With
-    parts = (p0, n), for the tensor-core routes: w is `_pack_w` of parts
-    p0..p0+n and the bias vector those parts' values."""
+    parts = (p0, n), for the tensor-core routes of B2-B4: w is `_pack_w` of
+    parts p0..p0+n and the bias vector those parts' values.  keep_w: w as
+    it is (B1's tensor-core route reads it through its strides)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     C3 = wqkv.shape[1]
@@ -192,7 +240,9 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
     for t in (wqkv, b, *logit_scales, *biases, *bands):
         if t is not None and t.device != x.device:
             raise ValueError(f"operand on {t.device}, x on {x.device}")
-    if parts is None:
+    if keep_w:
+        w = wqkv
+    elif parts is None:
         w = wqkv.to(x.dtype).contiguous()
     else:
         p0, n = parts
@@ -267,8 +317,10 @@ def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
                 shift: int = 0, kernels: bool = True) -> torch.Tensor:
     """Window half, routed as the TPU routes it: small windows to B1,
     windows of more than 512 tokens to B3 (`window_half_large`).  Each
-    route launches its CUDA kernel for a CUDA x and runs its plain version
-    for a CPU x or when kernels=False.  Arguments as in `window_half_ref`."""
+    route launches its CUDA kernels for a CUDA x (B1: one fused kernel on
+    tensor cores for bf16, head dims up to 64; the CUDA-core kernel for
+    fp32) and runs its plain version for a CPU x or when kernels=False.
+    Arguments as in `window_half_ref`."""
     B, H, W, C = x.shape
     h = logit_scale.shape[0]
     route = window_route((H, W), window, h)
@@ -276,43 +328,77 @@ def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
         raise NotImplementedError(
             f"window_half: no TPU window kernel takes window {window} on "
             f"{H}x{W} with {h} heads")
+    args = (x, wqkv, bqkv, logit_scale, bias, window, bands, shift)
     if route == "large":
-        return window_half_large(x, wqkv, bqkv, logit_scale, bias, window,
-                                 bands, shift, kernels)
-    if not kernels:
-        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
-                               bands, shift)
-    _check_inference("window_half", x, wqkv, bqkv, logit_scale, bias)
-    if not x.is_cuda:
-        return window_half_ref(x, wqkv, bqkv, logit_scale, bias, window,
-                               bands, shift)
+        return window_half_large(*args, kernels)
+    if not kernels or not x.is_cuda:
+        return window_half_ref(*args)
+    return _launch(_window_half_kernel, window_half_ref, *args)
+
+
+def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
+                        bands=None, shift: int = 0) -> torch.Tensor:
     B, H, W, C, Cw, h = _check_window("window_half", x, wqkv, logit_scale,
                                       bias, window, bands)
     wh, ww = window
-    x, w, b, (s,), (bias,), (bands,) = _operands(
-        x, wqkv, bqkv, [logit_scale], [bias], [bands])
+    d = Cw // h
+    tc = x.dtype == torch.bfloat16
+    if tc:
+        _check_d("window_half", d, _SMALL_MAX_D)
+        # w where the model keeps it (fp32 or bf16, any strides): the
+        # kernel rounds it to bf16 in shared memory
+        if wqkv.dtype not in (torch.float32, torch.bfloat16):
+            wqkv = wqkv.float()
+        x, w, b, (s,), (bias,), (bands,) = _operands(
+            x, wqkv, bqkv, [logit_scale], [bias], [bands], keep_w=True)
+    else:
+        x, w, b, (s,), (bias,), (bands,) = _operands(
+            x, wqkv, bqkv, [logit_scale], [bias], [bands])
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
-    err = cuda_build.library().grlir_window_half(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands), _ptr(y),
-        B, H, W, C, Cw, h, wh, ww, int(shift), int(x.dtype == torch.bfloat16),
-        _stream(x))
-    cuda_build.check(err, "window_half", f"window {window} at d={Cw // h}")
-    window_half.launches += 1
+    lib = cuda_build.library()
+    if tc:
+        err = lib.grlir_window_half_mma(
+            _ptr(x), _ptr(w), w.stride(0), w.stride(1),
+            int(w.dtype == torch.bfloat16), _ptr(b), _ptr(s), _ptr(bias),
+            _ptr(bands), _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift),
+            _stream(x))
+    else:
+        err = lib.grlir_window_half(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
+            _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift), 0, _stream(x))
+    cuda_build.check(err, "window_half", f"window {window} at d={d}")
+    _count_route(window_half, x)
     return y
 
 
 window_half.launches = 0
+window_half.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
-# head dims the large kernels and the tensor-core routes take (their tiles
-# and workspace rows hold 32 columns)
+# head dims the kernels take: B1 up to 64 on both routes; B2's bf16 route,
+# B3 and B4 up to 32 (their tiles and workspace rows hold 32 columns)
+_SMALL_MAX_D = 64
 _LARGE_MAX_D = 32
 
 
-def _check_large_d(name: str, d: int) -> None:
-    if d > _LARGE_MAX_D:
+def _check_d(name: str, d: int, max_d: int = _LARGE_MAX_D) -> None:
+    if d > max_d:
         raise NotImplementedError(
-            f"{name}: head dim {d} > {_LARGE_MAX_D} is beyond the kernel's "
-            "tiles")
+            f"{name}: head dim {d} > {max_d} is beyond the kernel's tiles")
+
+
+def window_kernel_takes(route: str, d: int) -> bool:
+    """Whether the window kernel of `route` ("small" B1, "large" B3) takes
+    head dim d."""
+    return d <= (_SMALL_MAX_D if route == "small" else _LARGE_MAX_D)
+
+
+def stripe_kernel_takes(route: str, d: int, dtype: torch.dtype) -> bool:
+    """Whether the stripe kernel of `route` ("resident" B2, "large" B4)
+    takes head dim d for inputs of dtype: B2's CUDA-core route (fp32) up to
+    64, its tensor-core route and B4 up to 32."""
+    if route == "resident" and dtype != torch.bfloat16:
+        return d <= _SMALL_MAX_D
+    return d <= _LARGE_MAX_D
 
 
 def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
@@ -323,16 +409,18 @@ def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     cores for fp32), `window_half_large_ref` for a CPU x or when
     kernels=False.  Arguments as in `window_half_ref`."""
     args = (x, wqkv, bqkv, logit_scale, bias, window, bands, shift)
-    if not kernels:
+    if not kernels or not x.is_cuda:
         return window_half_large_ref(*args)
-    _check_inference("window_half_large", x, wqkv, bqkv, logit_scale, bias)
-    if not x.is_cuda:
-        return window_half_large_ref(*args)
+    return _launch(_window_half_large_kernel, window_half_large_ref, *args)
+
+
+def _window_half_large_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
+                              bands=None, shift: int = 0) -> torch.Tensor:
     B, H, W, C, Cw, h = _check_window("window_half_large", x, wqkv,
                                       logit_scale, bias, window, bands)
     wh, ww = window
     N, d = wh * ww, Cw // h
-    _check_large_d("window_half_large", d)
+    _check_d("window_half_large", d)
     tc = x.dtype == torch.bfloat16
     x, w, b, (s,), (bias,), (bands,) = _operands(
         x, wqkv, bqkv, [logit_scale], [bias], [bands],
@@ -523,27 +611,38 @@ def stripe_half(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
         raise NotImplementedError(
             f"stripe_half: no TPU stripe kernel takes stripe {stripe}/df "
             f"{df} on {H}x{W} with {h} heads")
-    if route == "large":
-        x1 = stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
-                              stripe, df, bands, bands_a, shift, kernels)
-        return stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2,
-                                bias_w2a, stripe, df, bands, bands_a, shift,
-                                kernels)
     args = (x, anchor, wqkv, bqkv, logit_scale1, logit_scale2, bias_a2w,
             bias_w2a, stripe, df, bands, bands_a, shift)
-    if not kernels:
-        return stripe_half_ref(*args)
-    _check_inference("stripe_half", x, anchor, wqkv, bqkv, logit_scale1,
-                     logit_scale2, bias_a2w, bias_w2a)
-    if not x.is_cuda:
-        return stripe_half_ref(*args)
+    plain = stripe_half_large_ref if route == "large" else stripe_half_ref
+    if not kernels or not x.is_cuda:
+        return plain(*args)
+    # B4's two steps under one backward, as the JAX package's custom VJP
+    # wraps the pair (grlir/ops/pallas/block_attn.py:1287-1310): the w2a
+    # step's backward must see the plain x1, not the kernel's
+    launch = _stripe_half_large_kernel if route == "large" else _stripe_half_kernel
+    return _launch(launch, plain, *args)
+
+
+def _stripe_half_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
+                              bias_a2w, bias_w2a, stripe: Size2, df: int,
+                              bands=None, bands_a=None,
+                              shift: Size2 = (0, 0)) -> torch.Tensor:
+    x1 = _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                                  stripe, df, bands, bands_a, shift)
+    return _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2,
+                                    bias_w2a, stripe, df, bands, bands_a, shift)
+
+
+def _stripe_half_kernel(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
+                        bias_a2w, bias_w2a, stripe: Size2, df: int, bands=None,
+                        bands_a=None, shift: Size2 = (0, 0)) -> torch.Tensor:
     sh, sw = stripe
     B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
         "stripe_half", x, anchor, wqkv, logit_scale1, stripe, df, bands,
         bands_a, bias_a2w, bias_w2a)
     tc = x.dtype == torch.bfloat16
     if tc:   # the tensor-core route's workspace rows hold 32 columns
-        _check_large_d("stripe_half", Cs // h)
+        _check_d("stripe_half", Cs // h)
     x, w, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1, logit_scale2], [bias_a2w, bias_w2a],
         [bands, bands_a], parts=(0, 3) if tc else None)
@@ -592,8 +691,8 @@ def _pack_w(w, p0: int, nparts: int) -> torch.Tensor:
 
 
 def _count_route(fn, x: torch.Tensor) -> None:
-    """One launch of B2, B3 or a B4 step on the route x's type takes: bf16
-    on tensor cores, fp32 on CUDA cores."""
+    """One launch of B1, B2, B3 or a B4 step on the route x's type takes:
+    bf16 on tensor cores, fp32 on CUDA cores."""
     fn.launches += 1
     fn.route_launches[
         "tensor_core" if x.dtype == torch.bfloat16 else "cuda_core"] += 1
@@ -608,18 +707,20 @@ def stripe_a2w_large(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
     kernels=False.  Returns x1 (B, nW, h, N2, d) in x's type."""
     args = (x, anchor, wqkv, bqkv, logit_scale1, bias_a2w, stripe, df, bands,
             bands_a, shift)
-    if not kernels:
+    if not kernels or not x.is_cuda:
         return stripe_a2w_large_ref(*args)
-    _check_inference("stripe_a2w_large", x, anchor, wqkv, bqkv, logit_scale1,
-                     bias_a2w)
-    if not x.is_cuda:
-        return stripe_a2w_large_ref(*args)
+    return _launch(_stripe_a2w_large_kernel, stripe_a2w_large_ref, *args)
+
+
+def _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
+                             stripe: Size2, df: int, bands=None, bands_a=None,
+                             shift: Size2 = (0, 0)) -> torch.Tensor:
     sh, sw = stripe
     B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
         "stripe_a2w_large", x, anchor, wqkv, logit_scale1, stripe, df, bands,
         bands_a, bias_a2w=bias_a2w)
     d = Cs // h
-    _check_large_d("stripe_a2w_large", d)
+    _check_d("stripe_a2w_large", d)
     tc = x.dtype == torch.bfloat16
     x, w, b, (s1,), (b1,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1], [bias_a2w], [bands, bands_a],
@@ -666,18 +767,20 @@ def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
     rolled coordinates."""
     args = (x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a, stripe, df,
             bands, bands_a, shift)
-    if not kernels:
+    if not kernels or not x.is_cuda:
         return stripe_w2a_large_ref(*args)
-    _check_inference("stripe_w2a_large", x, anchor, x1, wqkv, bqkv,
-                     logit_scale2, bias_w2a)
-    if not x.is_cuda:
-        return stripe_w2a_large_ref(*args)
+    return _launch(_stripe_w2a_large_kernel, stripe_w2a_large_ref, *args)
+
+
+def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
+                             stripe: Size2, df: int, bands=None, bands_a=None,
+                             shift: Size2 = (0, 0)) -> torch.Tensor:
     sh, sw = stripe
     B, H, W, C, Cs, h, N1, N2, nW = _check_stripe(
         "stripe_w2a_large", x, anchor, wqkv, logit_scale2, stripe, df, bands,
         bands_a, bias_w2a=bias_w2a, x1=x1)
     d = Cs // h
-    _check_large_d("stripe_w2a_large", d)
+    _check_d("stripe_w2a_large", d)
     tc = x.dtype == torch.bfloat16
     x, w, b, (s2,), (b2,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale2], [bias_w2a], [bands, bands_a],
@@ -722,19 +825,25 @@ KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
 # None) and that the model ran on its plain cosine attention instead, as
 # the JAX package runs its XLA path there (grlir/models/blocks.py:557-562)
 unrouted_halves = 0
+# block halves that a TPU kernel takes but whose head dim the port's kernel
+# does not (B2's bf16 route, B3, B4, B5 above 32; any above 64), which the
+# model ran on its plain cosine attention
+wide_halves = 0
 
 
 # the kernels with a tensor-core and a CUDA-core route
-ROUTED = (window_half_large, stripe_half, stripe_a2w_large, stripe_w2a_large)
+ROUTED = (window_half, window_half_large, stripe_half, stripe_a2w_large,
+          stripe_w2a_large)
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, the counts by route of B2, B3 and
-    B4, and unrouted_halves, to 0."""
-    global unrouted_halves
+    """Set every kernel's launch count, the counts by route of B1-B4,
+    unrouted_halves and wide_halves to 0."""
+    global unrouted_halves, wide_halves
     for k in KERNELS:
         k.launches = 0
     for k in ROUTED:
         for route in k.route_launches:
             k.route_launches[route] = 0
     unrouted_halves = 0
+    wide_halves = 0

@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "grlir_torch"
 SOURCES = ("window_half.cu", "stripe_half.cu", "window_half_large.cu",
            "stripe_half_large.cu", "flash_attention.cu", "cosine_attention.cu")
-HEADERS = ("common.cuh", "large_attn.cuh", "stripe_attn_mma.cuh")
+HEADERS = ("common.cuh", "large_attn.cuh", "mma_util.cuh", "stripe_attn_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,6 +33,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _COSINE = [_P] * 4 + [_L] * 16 + [_P] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
     "grlir_window_half": [_P] * 7 + [_I] * 10 + [_P],
+    "grlir_window_half_mma": [_P] * 2 + [_L] * 2 + [_I] + [_P] * 5 + [_I] * 9 + [_P],
     "grlir_stripe_half": [_P] * 11 + [_I] * 11 + [_P],
     "grlir_stripe_half_mma": [_P] * 12 + [_I] * 12 + [_P],
     "grlir_window_half_large": [_P] * 8 + [_I] * 9 + [_P],

@@ -36,6 +36,10 @@ from grlir_torch.ops.block_attn import (
 )
 
 
+# head dims the kernel takes (its tiles hold 32 columns)
+MAX_D = _LARGE_MAX_D
+
+
 def _bias_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
@@ -85,10 +89,10 @@ def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
                          f"{tuple(k.shape)}, bias {tuple(bias.shape)} do not fit")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if d > _LARGE_MAX_D:
+    if d > MAX_D:
         raise NotImplementedError(
-            f"flash_rect_attention: head dim {d} > {_LARGE_MAX_D} is beyond "
-            "the kernel's tiles")
+            f"flash_rect_attention: head dim {d} > {MAX_D} is beyond the "
+            "kernel's tiles")
     for t in (k, v, bias, bands_q, bands_k):
         if t is not None and t.device != q.device:
             raise ValueError(f"operand on {t.device}, q on {q.device}")

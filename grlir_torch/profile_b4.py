@@ -1,5 +1,6 @@
-"""Device time of the tensor-core routes (B2, B3, B4) by CUDA kernel, and
-the device-busy share of the GRL-S and GRL-base forwards.
+"""Device time of the kernels by CUDA kernel (B1-B4 on their tensor-core
+routes, B5-B7), and the device-busy share of the GRL-S and GRL-base
+forwards.
 
     python3 -m grlir_torch.profile_b4
 
@@ -14,6 +15,14 @@ inputs random from seed 0:
       shifted by half with band ids;
   B2  `stripe_half` at GRL-S x4 256^2 (vertical stripes 64x8, df 4,
       shifted with band ids), 2 heads of d = 32, C = 128;
+  B1  `window_half` at GRL-S x4 256^2 (window 8, shifted by 4 with band
+      ids), 2 heads of d = 32, C = 128;
+  B5-B7 at the shapes of chip_smoke.py's timing rows (GRL-S, 2 heads of
+      d = 32): B5 `flash_rect_attention` on the 256^2 H stripes' w2a step
+      (8x64 stripes, shifted), B6 `fused_window_attention_qkv` and B7b
+      `fused_cosine_attention_packed` (P 4) on the 256^2 windows (shifted),
+      B7a `fused_cosine_attention` on the 128^2 H stripes' w2a step
+      (shifted);
   GRL-S x4 256^2 bs1 forward and GRL-base x4 256^2 bs1 forward at its
       released eval geometry (window 32, stripes 64x64, df 2), engine v3,
       random weights from seed 0: the device-busy share, the CUDA kernel
@@ -39,8 +48,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from grlir_torch.models import zoo
-from grlir_torch.models.grl import GRL, init_weights
+from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
+from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as ba
+from grlir_torch.ops import flash_attention as tfa
 
 CALLS = 5
 
@@ -111,6 +122,44 @@ def forward_busy(label: str, cfg, hw: int, dev, g) -> None:
         print(f"[profile_b4]   {t / CALLS / 1e3:.4f} ms a forward  {count:5d} calls  {key[:90]}")
 
 
+def fused_kernels(cfg, geom, geom128, rnd) -> None:
+    """B5, B6, B7a and B7b at chip_smoke.py's timing shapes, bf16."""
+    heads = cfg.num_heads_window[0]
+    d = cfg.embed_dim // 2 // heads
+    ls = torch.tensor([math.log(10.0), 5.0], device=geom["bands_w"].device)
+    ls = ls.reshape(heads, 1, 1)
+
+    def dense(bq, bk):
+        return torch.where(bq[:, :, None] != bk[:, None, :], -100.0, 0.0)
+
+    bw = geom["bands_w"]
+    nw, n = bw.shape
+    bias = 16 * torch.sigmoid(rnd(heads, n, n))
+    qkv = rnd(1, nw, 3 * heads * d, n, std=0.25).bfloat16()
+    report("B6 fused_window_attention_qkv, GRL-S 256^2 windows (8, 8) shift 4",
+           lambda: tatt.fused_window_attention_qkv(qkv, ls, bias, heads, bw), 1, "call")
+    q, k, v = (rnd(1, nw, heads, n, d, std=sd).bfloat16() for sd in (1.0, 1.0, 0.25))
+    mask = dense(bw, bw)
+    report("B7b fused_cosine_attention_packed, GRL-S 256^2 windows (8, 8) shift 4, P 4",
+           lambda: tatt.fused_cosine_attention_packed(q, k, v, ls, bias, mask, pack=4), 1,
+           "call")
+    bs, bsa = geom128["bands_sh"], geom128["bands_sh_a"]
+    (ns, n1), n2 = bs.shape, bsa.shape[1]
+    q, a, x1 = (rnd(1, ns, heads, m, d, std=sd).bfloat16()
+                for m, sd in ((n1, 1.0), (n2, 1.0), (n2, 0.25)))
+    b2 = 16 * torch.sigmoid(rnd(heads, n1, n2))
+    m2 = dense(bs, bsa)
+    report("B7a fused_cosine_attention, GRL-S 128^2 H stripes w2a (shifted)",
+           lambda: tatt.fused_cosine_attention(q, a, x1, ls, b2, m2), 1, "call")
+    bs, bsa = geom["bands_sh"], geom["bands_sh_a"]
+    (ns, n1), n2 = bs.shape, bsa.shape[1]
+    q, a, x1 = (rnd(1, ns, heads, d, m, std=sd).bfloat16()
+                for m, sd in ((n1, 1.0), (n2, 1.0), (n2, 0.25)))
+    b2 = 16 * torch.sigmoid(rnd(heads, n1, n2))
+    report("B5 flash_rect_attention, GRL-S 256^2 H stripes (8, 64) w2a (shifted)",
+           lambda: tfa.flash_rect_attention(q, a, x1, ls, b2, bs, bsa), 1, "call")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_b4: no CUDA device", file=sys.stderr)
@@ -167,6 +216,13 @@ def main() -> int:
     report("B2 stripe_half, GRL-S x4 256^2 (stripes 64x8, shift (32, 4))",
            lambda: ba.stripe_half(x, anchor, w, b, ls1, ls2, b1, b2, stripe, df, bands=bands,
                                   bands_a=bands_a, shift=(32, 4)), 1, "call")
+    geom = geometry_tensors(cfg.geometry_config, (hw, hw), dev)
+    x = rnd(1, hw, hw, C).bfloat16()
+    bias_w = 16 * torch.sigmoid(rnd(heads, 64, 64))
+    report("B1 window_half, GRL-S x4 256^2 (window 8, shift 4)",
+           lambda: ba.window_half(x, w, b, ls1, bias_w, (8, 8), bands=geom["bands_w"],
+                                  shift=4), 1, "call")
+    fused_kernels(cfg, geom, geometry_tensors(cfg.geometry_config, (128, 128), dev), rnd)
     forward_busy(f"GRL-S x4 {hw}^2 bs1 bf16", cfg, hw, dev, g)
     base = zoo.make_config("base", task="sr", upscale=4, window_size=32,
                            anchor_window_down_factor=2, stripe_size=(64, 64),

@@ -54,7 +54,7 @@ def _split_case(shape, with_mask, seed):
 # ------------------------------------------------------------------ B6
 
 @pytest.mark.parametrize("with_bands", [False, True])
-@pytest.mark.parametrize("heads,d", [(2, 16), (3, 10)])
+@pytest.mark.parametrize("heads,d", [(2, 16), (3, 10), (2, 64)])
 def test_window_qkv_ref_matches_pallas(with_bands, heads, d):
     B, nW, N, C = 2, 4, 64, heads * d
     rng = np.random.default_rng(heads)
@@ -72,10 +72,10 @@ def test_window_qkv_ref_matches_pallas(with_bands, heads, d):
 
 # ------------------------------------------------------------ B7a and B7b
 
-# (B, nW, h, N1, N2, d): a2w (few queries, many keys), w2a, and GRL-S's
-# 8x32 stripes at 128^2 (N1 = 256) at GRL-base's head dim 30
+# (B, nW, h, N1, N2, d): a2w (few queries, many keys), w2a, GRL-S's 8x32
+# stripes at 128^2 (N1 = 256) at GRL-base's head dim 30, and head dim 64
 @pytest.mark.parametrize("shape", [(2, 3, 2, 16, 64, 16), (2, 3, 2, 64, 16, 16),
-                                   (1, 2, 3, 256, 16, 30)])
+                                   (1, 2, 3, 256, 16, 30), (1, 2, 2, 64, 128, 64)])
 @pytest.mark.parametrize("with_mask", [False, True])
 def test_cosine_ref_matches_pallas(shape, with_mask):
     args = _split_case(shape, with_mask, 0)
@@ -88,7 +88,18 @@ def test_cosine_ref_matches_pallas(shape, with_mask):
 @pytest.mark.parametrize("with_mask", [False, True])
 def test_packed_ref_matches_pallas(pack, with_mask):
     """B7b packed as the TPU packs it, and the same function as B7a."""
-    args = _split_case((2, 4, 2, 64, 64, 16), with_mask, 1)
+    _check_packed((2, 4, 2, 64, 64, 16), pack, with_mask)
+
+
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_packed_ref_matches_pallas_at_head_dim_64(pack, with_mask):
+    """B7b at head dim 64, the widest the port's kernel takes."""
+    _check_packed((1, 4, 2, 64, 64, 64), pack, with_mask)
+
+
+def _check_packed(shape, pack, with_mask):
+    args = _split_case(shape, with_mask, 1)
     want = np.asarray(jatt.fused_cosine_attention_packed(
         *map(_j, args), pack=pack, interpret=True))
     got = tatt.fused_cosine_attention_packed_ref(*map(_t, args), pack=pack)

@@ -5,6 +5,7 @@ The CUDA kernels themselves are tested in test_torch_cuda_kernels.py."""
 import math
 from dataclasses import replace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,20 +117,92 @@ def test_cpu_tensors_take_the_plain_path(data):
 
 
 def test_grad_requiring_input_raises(data):
+    """Under grad, B1-B4's wrappers no longer raise: with kernels=True they
+    return gradients (on a CPU tensor those of the plain version, on the
+    card the kernel forward with the plain version's backward), equal to
+    kernels=False's; only B5-B7, which have no backward in the JAX package
+    either, still raise (tests/test_torch_attention.py,
+    tests/test_torch_flash_attention.py)."""
     args, _ = _window_args(data, False)
     x, *rest = map(_t, args)
-    x = x.clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        tba.window_half(x, *rest, WIN)
+    grads = []
+    for kernels in (True, False):
+        xg = x.clone().requires_grad_(True)
+        tba.window_half(xg, *rest, WIN, kernels=kernels).sum().backward()
+        grads.append(xg.grad)
+    assert torch.isfinite(grads[0]).all()
+    torch.testing.assert_close(grads[0], grads[1], atol=0, rtol=0)
     sargs, _, _ = _stripe_args(data, (8, 16), False)
     sx, *srest = map(_t, sargs)
+    sx = sx.clone().requires_grad_(True)
+    tba.stripe_half(sx, *srest, (8, 16), DF).sum().backward()
+    assert sx.grad is not None and torch.isfinite(sx.grad).all()
+    from grlir_torch.ops import attention as tatt
+    q = torch.zeros((1, 1, 1, 16, 8), requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        tba.stripe_half(sx.clone().requires_grad_(True), *srest, (8, 16), DF)
-    # under no_grad the same call runs; kernels=False keeps autograd
-    with torch.no_grad():
-        tba.window_half(x, *rest, WIN)
-    tba.window_half(x, *rest, WIN, kernels=False).sum().backward()
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+        tatt.fused_cosine_attention(q, q, q, torch.zeros((1, 1, 1)),
+                                    torch.zeros((1, 16, 16)))
+
+
+def _grads(torch_fn, jax_fn, args, diff, cot):
+    """d sum(y * cot) / d args[i] for i in diff: (the port's autograd, grlir's
+    jax.grad), args numpy arrays (None or int where not differentiated)."""
+    targs = [_t(a) for a in args]
+    for i in diff:
+        targs[i] = targs[i].clone().requires_grad_(True)
+    (torch_fn(*targs) * _t(cot)).sum().backward()
+    got = [targs[i].grad.numpy() for i in diff]
+
+    def loss(*dargs):
+        jargs = [_j(a) for a in args]
+        for i, v in zip(diff, dargs):
+            jargs[i] = v
+        return jnp.sum(jax_fn(*jargs) * _j(cot))
+
+    want = jax.grad(loss, argnums=tuple(range(len(diff))))(
+        *[_j(args[i]) for i in diff])
+    return got, [np.asarray(w) for w in want]
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max(), rtol=0)
+
+
+# kernels=True on CPU tensors that require grad: the wrappers run their
+# plain version with autograd; grlir differentiates its Pallas kernels
+# (interpret mode) through their custom VJPs, which recompute the XLA twins.
+# Every float operand's gradient, fp32, within 1e-4 of its largest
+# magnitude: w's and b's gradients sum over every token and reach a few
+# hundred, where fp32's own spacing is ~3e-5; the two frameworks' sums in
+# other orders land ~6e-6 of that largest magnitude apart.
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_half_grads_match_jax(data, shifted):
+    args, bands = _window_args(data, shifted)
+    shift = WIN[0] // 2 if shifted else 0
+    cot = np.random.default_rng(11).standard_normal((B, H, W, CW)).astype(np.float32)
+    got, want = _grads(
+        lambda *a: tba.window_half(*a[:5], WIN, bands=a[5], shift=shift, kernels=True),
+        lambda *a: jba.fused_window_half(*a[:5], WIN, bands=a[5], shift=shift,
+                                         interpret=True),
+        (*args, bands), range(5), cot)
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("stripe", [(8, 16), (16, 8)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_half_grads_match_jax(data, stripe, shifted):
+    args, bands, bands_a = _stripe_args(data, stripe, shifted)
+    shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+    cot = np.random.default_rng(12).standard_normal((B, H, W, CW)).astype(np.float32)
+    kw = dict(shift=shift)
+    got, want = _grads(
+        lambda *a: tba.stripe_half(*a[:8], stripe, DF, bands=a[8], bands_a=a[9],
+                                   kernels=True, **kw),
+        lambda *a: jba.fused_stripe_half(*a[:8], stripe, DF, bands=a[8], bands_a=a[9],
+                                         interpret=True, **kw),
+        (*args, bands, bands_a), range(8), cot)
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.parametrize("size", [(256, 256), (32, 48), (250, 250), (64, 1024)])

@@ -13,6 +13,7 @@ from grlir.ops.geometry import GeometryConfig
 from grlir_torch.models.blocks import CAB as TCAB
 from grlir_torch.models.blocks import EfficientMixAttnTransformerBlock as TBlock
 from grlir_torch.models.grl import geometry_tensors
+from grlir_torch.ops import block_attn as tba
 from grlir_torch.utils.convert import jax_params_to_state_dict
 from torch_parity import jax_geometry, random_params
 
@@ -35,29 +36,46 @@ def test_block_with_cab_matches_jax(i):
     _check_block(i, local=True)
 
 
-def _check_block(i, local):
+def _check_block(i, local, dim=DIM, window=WINDOW, size=SIZE, use_pallas=False,
+                 engine="v3", batch=2):
     sched = dict(window_shift=i % 2 == 0, stripe_type="H" if i % 2 == 0 else "W",
                  stripe_shift=i % 4 in (2, 3))
-    jblock = JBlock(dim=DIM, num_heads_w=HEADS, num_heads_s=HEADS,
-                    window_size=(WINDOW, WINDOW), stripe_size_cfg=STRIPE,
+    jblock = JBlock(dim=dim, num_heads_w=HEADS, num_heads_s=HEADS,
+                    window_size=(window, window), stripe_size_cfg=STRIPE,
                     stripe_groups_cfg=GROUPS, mlp_ratio=2.0,
                     anchor_window_down_factor=DF, d_major=True, attn_io="cm",
-                    local_connection=local, **sched)
-    gcfg = GeometryConfig((WINDOW, WINDOW), STRIPE, GROUPS, DF)
+                    local_connection=local, use_pallas=use_pallas, **sched)
+    gcfg = GeometryConfig((window, window), STRIPE, GROUPS, DF)
     rng = np.random.default_rng(i)
-    x = rng.standard_normal((2, *SIZE, DIM)).astype(np.float32)
-    geom = jax_geometry(gcfg, SIZE)
+    x = rng.standard_normal((batch, *size, dim)).astype(np.float32)
+    geom = jax_geometry(gcfg, size)
     params = random_params(jblock, rng, jnp.asarray(x), geom)
     want = np.asarray(jax.jit(jblock.apply)(params, jnp.asarray(x), geom))
 
-    tblock = TBlock(DIM, HEADS, HEADS, WINDOW, stripe_size=STRIPE,
+    tblock = TBlock(dim, HEADS, HEADS, window, stripe_size=STRIPE,
                     stripe_groups=GROUPS, mlp_ratio=2.0, df=DF,
-                    local_connection=local, **sched).eval()
+                    local_connection=local, engine=engine, **sched).eval()
     tblock.load_state_dict(jax_params_to_state_dict(params), strict=True)
     with torch.no_grad():
-        got = tblock(torch.from_numpy(x), geometry_tensors(gcfg, SIZE, "cpu"),
+        got = tblock(torch.from_numpy(x), geometry_tensors(gcfg, size, "cpu"),
                      torch.float32, kernels=True)
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+# Two heads of d = 64 a half (dim 256) against grlir's block on its Pallas
+# kernels (interpret mode), which take that head dim.  v3 at window 32: the
+# window half's B3 tiles hold 32 columns, so it runs the plain cosine
+# attention (one wide half); the 8 x 16 stripes take B2, whose fp32 route
+# takes d = 64.  fused with 8 x 36 stripes (288 tokens): the window half
+# takes B6, which takes d = 64; the H stripe half would take B5 (32
+# columns) and runs plain (one wide half).
+@pytest.mark.parametrize("engine,window,size", [("v3", 32, (32, 64)),
+                                                ("fused", 8, (16, 144))])
+def test_wide_head_block_matches_jax(engine, window, size):
+    tba.reset_launches()
+    _check_block(0, local=False, dim=256, window=window, size=size,
+                 use_pallas="v3" if engine == "v3" else True, engine=engine, batch=1)
+    assert (tba.wide_halves, tba.unrouted_halves) == (1, 0)
 
 
 # GRL-base's width: C = 180 compresses to 45 and squeezes to 10 channels

@@ -95,13 +95,20 @@ def test_window_kernel_matches_plain(cuda, dtype, window, shift):
     w, b, ls, _ = _weights(rng, cuda)
     bias = _rand(rng, HEADS, n, n).to(cuda)
     bands = _bands(rng, (H // window[0]) * (W // window[1]), n, cuda) if shift else None
-    before = tba.window_half.launches
+    before, routes = tba.window_half.launches, _routes([tba.window_half])
     with torch.no_grad():
         got = tba.window_half(x, w, b, ls, bias, window, bands, shift)
         want = tba.window_half(x, w, b, ls, bias, window, bands, shift, kernels=False)
+        moved = tba.window_half(x, w * 1.001, b, ls, bias, window, bands, shift)
     torch.cuda.synchronize()
-    assert tba.window_half.launches == before + 1
-    _assert_close(got, want, dtype)
+    # the kernel ran (its count and its route's), wrote storage of its own,
+    # and reads w: its output moves with w
+    assert tba.window_half.launches == before + 2
+    routes[0]["tensor_core" if dtype == torch.bfloat16 else "cuda_core"] += 2
+    assert _routes([tba.window_half]) == routes
+    assert got.data_ptr() != want.data_ptr()
+    assert (moved.float() - got.float()).abs().max().item() > 0
+    _assert_close(got, want, dtype, ulp_gate=True)
 
 
 @pytest.mark.cuda
@@ -159,12 +166,12 @@ def _expect_routes(fns, routes, dtype):
     assert _routes(fns) == routes
 
 
-def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC):
+def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC, heads=BH, d=BD):
     rng = np.random.default_rng(6)
     n = window[0] * window[1]
     x = _rand(rng, B, H, W, c).to(dev, dtype)
-    w, b, ls, _ = _base_weights(rng, dev, c)
-    bias = 16 * torch.sigmoid(_rand(rng, BH, n, n)).to(dev)
+    w, b, ls, _ = _base_weights(rng, dev, c, heads, d)
+    bias = 16 * torch.sigmoid(_rand(rng, heads, n, n)).to(dev)
     bands = _bands(rng, (H // window[0]) * (W // window[1]), n, dev) if shift else None
     before, routes = launches_of.launches, _routes([launches_of])
     with torch.no_grad():
@@ -173,7 +180,7 @@ def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC):
     torch.cuda.synchronize()
     assert launches_of.launches == before + 1
     _expect_routes([launches_of], routes, dtype)
-    _assert_close(got, want, dtype)
+    _assert_close(got, want, dtype, ulp_gate=launches_of is tba.window_half)
 
 
 def _run_stripe(dev, dtype, stripe, df, shift, H, W, launch_fns, c=BC, batch=B,
@@ -221,6 +228,20 @@ def test_small_kernels_at_base_heads(cuda, dtype, shift):
     _run_window(cuda, dtype, (8, 8), shift, 32, 64, tba.window_half)
     _run_stripe(cuda, dtype, (8, 16), 4, (shift, 2 * shift), 32, 64,
                 [tba.stripe_half])
+
+
+# (heads, d, C): GRL-base's window half (3 heads of d = 30, C = 180), two
+# heads of d = 64 (C = 256: w of both heads does not fit a block's shared
+# memory beside the rest, so the bf16 kernel holds one head's at a time),
+# and one head of d = 64 at C = 64
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d,c", [(3, 30, 180), (2, 64, 256), (1, 64, 64)])
+@pytest.mark.parametrize("window,shift", [((8, 8), 0), ((8, 8), 4), ((12, 12), 6)])
+def test_window_kernel_at_head_dims(cuda, dtype, heads, d, c, window, shift):
+    """B1 on both routes at head dims 30 and 64 (the bf16 tensor-core route
+    takes up to 64), windows 8 and 12 (N = 144: three key chunks)."""
+    _run_window(cuda, dtype, window, shift, 24, 48, tba.window_half, c=c, heads=heads, d=d)
 
 
 @pytest.mark.cuda
@@ -381,6 +402,22 @@ def _scales(h, dev):
     return torch.tensor([math.log(10.0), 5.0, 3.0][:h]).reshape(h, 1, 1).to(dev)
 
 
+def _assert_fp32_close(got, want):
+    """B6/B7's gate in either input type: |got - want| <= FP32_TOL (1 +
+    |want|), plus, for bf16 outputs, one bf16 ulp of |want|: both sides
+    compute in fp32 and round only y, so a rounding boundary between two
+    values that agree to 1e-4 moves one of them by an ulp."""
+    ulp = 0.0
+    if want.dtype == torch.bfloat16:
+        a = want.float().abs().clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    err = (got.float() - want.float()).abs()
+    gate = FP32_TOL * (1 + want.float().abs()) + ulp
+    assert bool((err <= gate).all()), (
+        f"max|diff| {err.max().item():.3e} beyond the gate (max excess "
+        f"{(err - gate).max().item():.3e})")
+
+
 def _launched(fn, call):
     """Run call() under no_grad; assert it launched fn once; return y."""
     before = fn.launches
@@ -420,7 +457,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, with_bands):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,heads,d", [(64, 2, 32), (256, 3, 30), (36, 2, 16),
-                                       (144, 3, 10)])
+                                       (144, 3, 10), (64, 2, 64)])
 @pytest.mark.parametrize("with_bands", [False, True])
 def test_window_qkv_kernel_matches_plain(cuda, dtype, N, heads, d, with_bands):
     rng = np.random.default_rng(9)
@@ -433,7 +470,7 @@ def test_window_qkv_kernel_matches_plain(cuda, dtype, N, heads, d, with_bands):
                     lambda: tatt.fused_window_attention_qkv(*args))
     with torch.no_grad():
         want = tatt.fused_window_attention_qkv(*args, kernels=False)
-    _assert_close(got, want, dtype)
+    _assert_fp32_close(got, want)
 
 
 def _split(rng, shape, with_mask, dev, dtype):
@@ -449,11 +486,13 @@ def _split(rng, shape, with_mask, dev, dtype):
 
 
 # (B, nW, h, N1, N2, d): GRL-S's 8x32 stripes at 128^2 (a2w, w2a), a ragged
-# shape at GRL-base's heads, and the most keys the kernel holds
+# shape at GRL-base's heads, 600 keys (the most the CUDA-core kernel held),
+# head dim 64, and 700 keys at head dim 40 (ten key chunks)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 8, 2, 16, 256, 32), (1, 8, 2, 256, 16, 32),
-                                   (2, 3, 3, 100, 37, 30), (1, 2, 2, 600, 600, 8)])
+                                   (2, 3, 3, 100, 37, 30), (1, 2, 2, 600, 600, 8),
+                                   (1, 4, 2, 64, 64, 64), (1, 2, 2, 70, 700, 40)])
 @pytest.mark.parametrize("with_mask", [False, True])
 def test_cosine_kernel_matches_plain(cuda, dtype, shape, with_mask):
     args = _split(np.random.default_rng(10), shape, with_mask, cuda, dtype)
@@ -461,7 +500,7 @@ def test_cosine_kernel_matches_plain(cuda, dtype, shape, with_mask):
                     lambda: tatt.fused_cosine_attention(*args))
     with torch.no_grad():
         want = tatt.fused_cosine_attention(*args, kernels=False)
-    _assert_close(got, want, dtype)
+    _assert_fp32_close(got, want)
     # d-major views in, as the stripe engine passes them: same values, and
     # y comes back as a d-major view
     dm = [t.transpose(-1, -2).contiguous().transpose(-1, -2) for t in args[:3]]
@@ -475,35 +514,158 @@ def test_cosine_kernel_matches_plain(cuda, dtype, shape, with_mask):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pack", [2, 4])
 @pytest.mark.parametrize("with_mask", [False, True])
-def test_packed_kernel_matches_plain(cuda, dtype, pack, with_mask):
-    """B7b at GRL-S's window shapes against its block-diagonally packed
-    plain version, and equal to B7a's kernel."""
-    args = _split(np.random.default_rng(11), (1, 16, 2, 64, 64, 32), with_mask,
+@pytest.mark.parametrize("d", [32, 64])
+def test_packed_kernel_matches_plain(cuda, dtype, pack, with_mask, d):
+    """B7b at GRL-S's window shapes (and head dim 64) against its
+    block-diagonally packed plain version, and equal to B7a's kernel."""
+    args = _split(np.random.default_rng(11), (1, 16, 2, 64, 64, d), with_mask,
                   cuda, dtype)
     got = _launched(tatt.fused_cosine_attention_packed,
                     lambda: tatt.fused_cosine_attention_packed(*args, pack=pack))
     with torch.no_grad():
         want = tatt.fused_cosine_attention_packed(*args, pack=pack, kernels=False)
         split = tatt.fused_cosine_attention(*args)
-    _assert_close(got, want, dtype)
+    _assert_fp32_close(got, want)
     assert torch.equal(got, split)
 
 
 @pytest.mark.cuda
 def test_fused_kernels_refuse_beyond_their_limits(cuda):
-    """Head dims beyond 32 and more keys than a block's shared memory holds
-    raise NotImplementedError before any launch."""
+    """Head dims beyond a kernel's tiles raise NotImplementedError before any
+    launch: 32 for B5, 64 for B6/B7 (whose keys stream in chunks, any
+    number of them)."""
     z = lambda *s: torch.zeros(s, device=cuda)   # noqa: E731
     ls = z(1, 1, 1)
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="head dim"):
             tfa.flash_rect_attention(z(1, 1, 1, 64, 32), z(1, 1, 1, 64, 32),
                                      z(1, 1, 1, 64, 32), ls, z(1, 32, 32))
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            tatt.fused_cosine_attention(z(1, 1, 1, 16, 8), z(1, 1, 1, 700, 8),
+        with pytest.raises(NotImplementedError, match="head dim"):
+            tatt.fused_cosine_attention(z(1, 1, 1, 16, 72), z(1, 1, 1, 16, 72),
+                                        z(1, 1, 1, 16, 72), ls, z(1, 16, 16))
+        with pytest.raises(NotImplementedError, match="head dim"):
+            tatt.fused_window_attention_qkv(z(1, 1, 3 * 72, 64), ls, z(1, 64, 64), 1)
+        y = tatt.fused_cosine_attention(z(1, 1, 1, 16, 8), z(1, 1, 1, 700, 8),
                                         z(1, 1, 1, 700, 8), ls, z(1, 16, 700))
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            tatt.fused_cosine_attention(z(1, 1, 1, 16, 40), z(1, 1, 1, 16, 40),
-                                        z(1, 1, 1, 16, 40), ls, z(1, 16, 16))
-        with pytest.raises(NotImplementedError, match="shared memory"):
-            tatt.fused_window_attention_qkv(z(1, 1, 96, 1024), ls, z(1, 1024, 1024), 1)
+    assert tuple(y.shape) == (1, 1, 1, 16, 8)
+
+
+# ------------------------------------------- wide heads and gradients
+
+def _block(dev, dtype, engine, window, stripe, groups, df, dim=256, heads=2, seed=0):
+    """One GRL block (positions 0: window shift, H stripes) with `heads`
+    heads a half of d = dim / (2 heads), random weights from a seed, in
+    dtype, with kernels on and a twin with kernels off."""
+    from grlir_torch.models.blocks import EfficientMixAttnTransformerBlock
+    from grlir_torch.models.grl import init_weights
+
+    def make():
+        return EfficientMixAttnTransformerBlock(
+            dim, heads, heads, window, True, stripe, groups, "H", True, 2.0, df,
+            engine=engine).eval().to(dev)
+
+    blk = init_weights(make(), torch.Generator().manual_seed(seed))
+    return blk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("engine", ["v3", "fused"])
+@pytest.mark.parametrize("geometry", ["grl_s", "base_eval"])
+def test_head_dim_64_block_kernels_vs_plain(cuda, dtype, engine, geometry):
+    """A block of 2 + 2 heads of d = 64 (dim 256) runs without raising.  At
+    GRL-S's geometry (window 8, 8 x 16 stripes at df 4) B1 or B6 takes the
+    window half and B7 (fused) or B2 (v3; its bf16 route holds 32 columns,
+    so bf16 runs its plain version) the stripe half; at GRL-base's eval
+    geometry (window 32, 64 x 64 stripes at df 2) B3, B4 and B5 hold 32
+    columns and both halves run plain.  Kernels on against off: fp32 within
+    5e-4, bf16 by rel L2 (the block's output is a residual sum ~N(0, 1))."""
+    from grlir_torch.models.grl import geometry_tensors
+    from grlir_torch.ops.geometry import GeometryConfig
+
+    if geometry == "grl_s":
+        window, stripe, groups, df, size = 8, (8, None), (None, 4), 4, (64, 64)
+    else:
+        window, stripe, groups, df, size = 32, (64, 64), (None, None), 2, (64, 64)
+    blk = _block(cuda, dtype, engine, window, stripe, groups, df)
+    geom = geometry_tensors(GeometryConfig((window, window), stripe, groups, df), size,
+                            cuda)
+    x = _rand(np.random.default_rng(13), 1, *size, 256).to(cuda)
+    tba.reset_launches()
+    for k in tatt.KERNELS + tfa.KERNELS:
+        k.launches = 0
+    with torch.no_grad():
+        got = blk(x.to(dtype), geom, dtype, kernels=True)
+        wide, launched = tba.wide_halves, [k.launches for k in
+                                           tba.KERNELS + tatt.KERNELS + tfa.KERNELS]
+        want = blk(x.to(dtype), geom, dtype, kernels=False)
+    torch.cuda.synchronize()
+    if geometry == "base_eval":
+        assert wide == 2 and sum(launched) == 0
+    elif engine == "fused":
+        assert wide == 0
+        assert tatt.fused_window_attention_qkv.launches == 1
+        assert tatt.fused_cosine_attention.launches == 2
+    else:
+        assert tba.window_half.launches == 1
+        assert wide == (1 if dtype == torch.bfloat16 else 0)
+        assert tba.stripe_half.launches == (0 if dtype == torch.bfloat16 else 1)
+    assert bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float())
+    if dtype == torch.float32:
+        assert diff.abs().max().item() <= 5e-4
+    else:
+        assert (diff.norm() / want.float().norm()).item() <= 1e-2
+
+
+def _grad_case(dev, kind, dtype=torch.float32):
+    """Operands of one block half at small shapes: x and every float operand
+    require grad.  kind: "window" (B1, 8 x 8), "window_large" (B3, 32 x
+    32), "stripe" (B2, 8 x 16 at df 4), "stripe_large" (B4, 64 x 64 at df
+    2)."""
+    rng = np.random.default_rng(14)
+    w, b, ls1, ls2 = _base_weights(rng, dev)
+    if kind.startswith("window"):
+        window = (8, 8) if kind == "window" else (32, 32)
+        H, W = (32, 32) if kind == "window" else (64, 64)
+        n = window[0] * window[1]
+        shift = window[0] // 2
+        args = [_rand(rng, 1, H, W, BC).to(dev, dtype), w, b, ls1,
+                16 * torch.sigmoid(_rand(rng, BH, n, n)).to(dev)]
+        bands = _bands(rng, (H // window[0]) * (W // window[1]), n, dev)
+        return args, lambda a, k: tba.window_half(*a, window, bands, shift, kernels=k)
+    stripe, df = ((8, 16), 4) if kind == "stripe" else ((64, 64), 2)
+    H, W = (32, 64) if kind == "stripe" else (128, 128)
+    n1, n2 = stripe[0] * stripe[1], (stripe[0] // df) * (stripe[1] // df)
+    nw = (H // stripe[0]) * (W // stripe[1])
+    args = [_rand(rng, 1, H, W, BC).to(dev, dtype),
+            _rand(rng, 1, H // df, W // df, BCH).to(dev, dtype), w, b, ls1, ls2,
+            16 * torch.sigmoid(_rand(rng, BH, n2, n1)).to(dev),
+            16 * torch.sigmoid(_rand(rng, BH, n1, n2)).to(dev)]
+    kw = dict(bands=_bands(rng, nw, n1, dev), bands_a=_bands(rng, nw, n2, dev),
+              shift=(stripe[0] // 2, stripe[1] // 2))
+    return args, lambda a, k: tba.stripe_half(*a, stripe, df, kernels=k, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["window", "window_large", "stripe", "stripe_large"])
+def test_kernel_grads_match_plain(cuda, kind):
+    """B1-B4 under grad with kernels on: the kernel runs forward (its launch
+    counts), the backward is the plain version's, so every gradient equals
+    kernels=False's (fp32: the forward outputs agree to 1e-4 and the
+    backward is the same code on the same inputs; torch's fp32
+    tolerances)."""
+    args, call = _grad_case(cuda, kind)
+    cot = _rand(np.random.default_rng(15), *call(args, False).shape).to(cuda)
+    grads = []
+    launched = tba.KERNELS
+    for kernels in (True, False):
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        before = sum(k.launches for k in launched)
+        y = call(leaves, kernels)
+        (y * cot).sum().backward()
+        assert sum(k.launches for k in launched) - before == (
+            0 if not kernels else 2 if kind == "stripe_large" else 1)
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        torch.testing.assert_close(g, w)
