@@ -187,6 +187,18 @@ cosine_tf32_kernel(CosArgs a) {
   // times the scale, plus the bias, the mask or the band mask; -inf past Nk
   float s[8][4];
   auto logits = [&](int c) {
+    // the bias and mask values of the thread's 32 logits, every load issued
+    // before the products, so that their trips to L2 overlap them
+    float bv[8][4], mv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1], key = c * kCosKeys + j * 8 + 2 * qd + (e & 1);
+        const bool in = key < Nk && row < Nq;
+        bv[j][e] = in ? __ldg(a.bias + ((size_t)hh * Nq + row) * Nk + key) : 0.f;
+        mv[j][e] = in && a.mask ? __ldg(a.mask + ((size_t)win * Nq + row) * Nk + key) : 0.f;
+      }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -198,23 +210,18 @@ cosine_tf32_kernel(CosArgs a) {
       }
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = rows[r];
-      const size_t brow = ((size_t)hh * Nq + row) * Nk, mrow = ((size_t)win * Nq + row) * Nk;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kc = j * 8 + 2 * qd + e, key = c * kCosKeys + kc;
-          float x = -INFINITY;
-          if (key < Nk && row < Nq) {
-            x = __fadd_rn(__fmul_rn(s[j][2 * r + e], scale), __ldg(a.bias + brow + key));
-            if (a.mask) x = __fadd_rn(x, __ldg(a.mask + mrow + key));
-            if (band && bks[kc] != bq[r]) x = __fadd_rn(x, -100.f);
-          }
-          s[j][2 * r + e] = x;
+      for (int e = 0; e < 4; ++e) {
+        const int row = rows[e >> 1], kc = j * 8 + 2 * qd + (e & 1);
+        float x = -INFINITY;
+        if (c * kCosKeys + kc < Nk && row < Nq) {
+          x = __fadd_rn(__fmul_rn(s[j][e], scale), bv[j][e]);
+          if (a.mask) x = __fadd_rn(x, mv[j][e]);
+          if (band && bks[kc] != bq[e >> 1]) x = __fadd_rn(x, -100.f);
         }
-    }
+        s[j][e] = x;
+      }
   };
 
   // pass 1: each row's max and sum over all keys (this thread's keys, then its quad's)

@@ -221,23 +221,22 @@ __device__ __forceinline__ void chunk_qk(const unsigned (&qa)[KS][4], const bf16
   }
 }
 
-// s += bias[row][key] of an fp32 bias (the thread's rows r0 and r0 + 8 in
-// rows[0], rows[1], each pointing at the chunk's first key, or null past the
-// last query row) for the chunk's keys below nk.
-__device__ __forceinline__ void add_bias_f32(float (&s)[8][4], const float* const (&rows)[2],
-                                             int nk, int lane) {
+// b = bias[row][key] of an fp32 bias in the accumulator layout of s (the
+// thread's rows r0 and r0 + 8 in rows[0], rows[1], each pointing at the
+// chunk's first key, or null past the last query row; 0 for keys from nk).
+// All 32 loads are issued before any is used: the caller loads before its
+// products, so their trips to L2 overlap them.
+__device__ __forceinline__ void load_bias_f32(float (&b)[8][4], const float* const (&rows)[2],
+                                              int nk, int lane) {
   const int qd = lane % 4;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!rows[r]) continue;
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = j * 8 + 2 * qd + e;
-        if (key < nk) s[j][2 * r + e] += __ldg(rows[r] + key);
-      }
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int key = j * 8 + 2 * qd + (e & 1);
+      const float* row = rows[e >> 1];
+      b[j][e] = row && key < nk ? __ldg(row + key) : 0.f;
+    }
 }
 
 // -100 where the key's band id (bk, in shared memory, 8-byte aligned; null:

@@ -399,10 +399,15 @@ window_half_mma_kernel(WinMmaArgs a) {
         for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
       auto logits = [&](int c) {
         const int nk = min(kMmaKeys, N - c * kMmaKeys);
-        chunk_qk(qa, ks + c * kMmaKeys * L.ldq, nk, lane, s);
         const float* br[2] = {rows[0] < N ? biash + (size_t)rows[0] * N + c * kMmaKeys : nullptr,
                               rows[1] < N ? biash + (size_t)rows[1] * N + c * kMmaKeys : nullptr};
-        add_bias_f32(s, br, nk, lane);
+        float bv[8][4];
+        load_bias_f32(bv, br, nk, lane);
+        chunk_qk(qa, ks + c * kMmaKeys * L.ldq, nk, lane, s);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] += bv[j][e];
         mask_logits(s, bw ? bw + c * kMmaKeys : nullptr, bq, nk, lane);
       };
       for (int c = 0; c < nch; ++c) {
