@@ -24,8 +24,9 @@
 // unit-normed once in fp32 and split into A fragments held in registers.  Keys and values
 // stream through shared memory in chunks of 64: each chunk's keys are unit-normed and
 // split, its values split, once per block.  Pass 1 folds each row's max and sum over the
-// chunks; pass 2 recomputes the logits with the same sequence (bit-equal) and forms the
-// normalised probabilities p = exp(s - max) / sum in registers, where the accumulator
+// chunks (exp as 2^x on the special-function unit, log2 e folded into one FMA); pass 2
+// recomputes the logits with the same sequence (bit-equal) and forms the normalised
+// probabilities p = exp(s - max) * (1 / sum) in registers, where the accumulator
 // layout of q k^T serves as the A fragments of p v without a shuffle: key 2c of an 8-key
 // tile takes the product's column c and key 2c + 1 column c + 4, and v's rows are read in
 // that order.  One chunk (N <= 64, B6's and B7b's windows) is one pass: its logits stay in
@@ -79,11 +80,21 @@ template <typename T, int DP>
 __device__ void load_rows(float* dst, const T* src, const long long* st, int t0, int n,
                           int d) {
   constexpr int ld = DP + 4;
-  const bool tok_fast = st[2] == 1;
-#pragma unroll 8
-  for (int i = threadIdx.x; i < 64 * DP; i += kCosThreads) {
-    const int t = tok_fast ? i % 64 : i / DP, e = tok_fast ? i / 64 : i % DP;
-    dst[t * ld + e] = (t0 + t < n && e < d) ? to_f(src[(t0 + t) * st[2] + e * st[3]]) : 0.f;
+  const int tid = threadIdx.x;
+  if (st[2] == 1) {  // a thread keeps its token, its channels step by kCosThreads / 64
+    const int t = tid % 64;
+    const bool in = t0 + t < n;
+    const T* p = src + (t0 + t);
+#pragma unroll
+    for (int e = tid / 64; e < DP; e += kCosThreads / 64)
+      dst[t * ld + e] = in && e < d ? to_f(p[e * st[3]]) : 0.f;
+  } else {  // a thread keeps its channel, its tokens step by kCosThreads / DP
+    const int e = tid % DP;
+    const bool in = e < d;
+    const T* p = src + e * st[3];
+#pragma unroll
+    for (int t = tid / DP; t < 64; t += kCosThreads / DP)
+      dst[t * ld + e] = in && t0 + t < n ? to_f(p[(t0 + t) * st[2]]) : 0.f;
   }
 }
 
@@ -224,7 +235,8 @@ cosine_tf32_kernel(CosArgs a) {
       }
   };
 
-  // pass 1: each row's max and sum over all keys (this thread's keys, then its quad's)
+  // pass 1: each row's max and sum over all keys (this thread's keys, then its quad's).
+  // One chunk: the row's max first, then e = exp(s - max) kept in s for pass 2.
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   for (int c = 0; c < nch; ++c) {
     if (c > 0) load_chunk(c, false);
@@ -234,22 +246,29 @@ cosine_tf32_kernel(CosArgs a) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      if (nch == 1) mx = quad_max(mx);  // one chunk: the row's max, then its exact sum
+      if (nch == 1) mx = quad_max(mx);
       const float m_new = fmaxf(m[r], mx);
       if (m_new == -INFINITY) continue;
+      const float ml = m_new * kLog2e;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        sum += expf(s[j][2 * r] - m_new) + expf(s[j][2 * r + 1] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + sum;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = ex2(fmaf(s[j][2 * r + e], kLog2e, -ml));
+          if (nch == 1) s[j][2 * r + e] = ex;
+          sum += ex;
+        }
+      l[r] = fmaf(l[r], ex2((m[r] - m_new) * kLog2e), sum);
       m[r] = m_new;
     }
   }
+  float inv_l[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float mq = quad_max(m[r]);
-    l[r] = quad_sum(m[r] == -INFINITY ? 0.f : l[r] * expf(m[r] - mq));
-    m[r] = mq;
+    inv_l[r] = 1.f / quad_sum(m[r] == -INFINITY ? 0.f : l[r] * ex2((m[r] - mq) * kLog2e));
+    m[r] = mq * kLog2e;
   }
 
   // pass 2: p = exp(s - max) / sum, then p v in 3xTF32
@@ -271,8 +290,8 @@ cosine_tf32_kernel(CosArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        const float p = __fdiv_rn(expf(s[j][e] - m[r]), l[r]);
-        split_tf32(p, pb[(e & 1) * 2 + r], ps[(e & 1) * 2 + r]);
+        const float ex = nch == 1 ? s[j][e] : ex2(fmaf(s[j][e], kLog2e, -m[r]));
+        split_tf32(ex * inv_l[r], pb[(e & 1) * 2 + r], ps[(e & 1) * 2 + r]);
       }
 #pragma unroll
       for (int n = 0; n < KS; ++n) {

@@ -73,6 +73,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
 // 2^x on the special-function unit, subnormal results flushed to zero:
 // a probability below 2^-126 adds nothing an fp32 sum keeps.
 __device__ __forceinline__ float ex2(float x) {

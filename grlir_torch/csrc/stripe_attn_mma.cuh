@@ -57,7 +57,6 @@ constexpr int kMmaRows = 64;        // query rows (attention) or tokens (project
 constexpr int kMmaKeys = 64;        // keys a chunk
 constexpr int kLdK = kDP + 8;       // bf16 smem row of q/k/v: 80 B, ldmatrix without conflicts
 constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
-constexpr float kLog2e = 1.4426950408889634f;
 
 // ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
 // times w plus b, unit-normed for the parts set in norm_mask, times

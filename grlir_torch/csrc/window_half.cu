@@ -231,7 +231,6 @@ window_half_mma_kernel(WinMmaArgs a) {
   bf16* vs = reinterpret_cast<bf16*>(mma_smem + L.v_off);
   float* bsm = reinterpret_cast<float*>(mma_smem + L.b_off);
   int* bnd = reinterpret_cast<int*>(mma_smem + L.band_off);
-  const Regions reg{a.H, a.W, a.wh, a.ww, a.shift, a.shift};
   const Regions out_reg{a.H, a.W, a.wh, a.ww, 0, 0};
   const int per_image = (a.H / a.wh) * (a.W / a.ww), nwin = a.B * per_image;
   const int tiles = L.NT / 64, rtiles = (N + 15) / 16;
@@ -267,12 +266,21 @@ window_half_mma_kernel(WinMmaArgs a) {
   // x rows of tokens t0..t0+63 of window g (rolled), zeros past C and N:
   // 8-byte copies (x rows 8-byte aligned when C % 4 == 0), or element loads
   const bool vec = C % 4 == 0;
+  const int nwx = a.W / a.ww;
   auto load_x = [&](int g, int t0) {
+    // the window's first rolled row and column, and its image's first pixel
+    const int wi = g % per_image;
+    const int y0 = (wi / nwx) * a.wh + a.shift, x0 = (wi % nwx) * a.ww + a.shift;
+    const size_t img = (size_t)(g / per_image) * a.H * a.W;
     for (int i = tid; i < 64 * (Cp / 4); i += kMmaThreads) {
-      const int r = i / (Cp / 4), c = (i % (Cp / 4)) * 4;
-      const bool ok = t0 + r < N;
+      const int r = i / (Cp / 4), c = (i % (Cp / 4)) * 4, t = t0 + r;
+      const bool ok = t < N;
+      const int ty = t / a.ww;
+      int y = y0 + ty, xx = x0 + t - ty * a.ww;  // < 2H, < 2W: one wrap at most
+      y -= y >= a.H ? a.H : 0;
+      xx -= xx >= a.W ? a.W : 0;
       bf16* dst = xs + r * L.ldw + c;
-      const bf16* src = a.x + (size_t)(ok ? reg.pixel(g, t0 + r) : 0) * C + c;
+      const bf16* src = a.x + (ok ? img + (size_t)y * a.W + xx : 0) * C + c;
       if (vec) {
         cp_async8(dst, src, ok && c < C);
       } else {
@@ -473,18 +481,17 @@ int launch_window_half_mma(WinMmaArgs a, cudaStream_t stream) {
 }  // namespace
 }  // namespace grlir
 
-// Returns 0 on success, -1 when the window does not fit in shared memory, or
-// the cudaError_t of a failed launch.
+// fp32 on CUDA cores.  x (B, H, W, C) unrolled; w (C, 3Cw); bqkv (3Cw,);
+// scale (heads,); bias (heads, N, N); all fp32; bands (windows, N) int32 or
+// null; y (B, H, W, Cw) fp32.  Returns 0 on success, -1 when the window does
+// not fit in shared memory, or the cudaError_t of a failed launch.
 extern "C" int grlir_window_half(const void* x, const void* w, const float* bqkv,
                                  const float* scale, const float* bias, const int* bands,
                                  void* y, int B, int H, int W, int C, int Cw, int heads,
-                                 int wh, int ww, int shift, int is_bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return grlir::launch_window_half<__nv_bfloat16>(x, w, bqkv, scale, bias, bands, y, B,
-                                                    H, W, C, Cw, heads, wh, ww, shift, s);
+                                 int wh, int ww, int shift, void* stream) {
   return grlir::launch_window_half<float>(x, w, bqkv, scale, bias, bands, y, B, H, W, C,
-                                          Cw, heads, wh, ww, shift, s);
+                                          Cw, heads, wh, ww, shift,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 // bf16 on tensor cores.  x (B, H, W, C) bf16 unrolled; w (C, 3Cw) fp32

@@ -231,10 +231,10 @@ class WindowAttention(nn.Module):
                                      t.bias(table, index, q.dtype), bands, bands,
                                      kernels and _takes(d <= flash.MAX_D))
         elif self.mode == "fused":
+            kern = kernels and _takes(d <= fused_attention.MAX_D)
             y = fused_window_attention_qkv(_qkv_cm(xw, wqkv, bqkv, dt),
                                            t.logit_scale, t.bias(table, index),
-                                           h, bands,
-                                           kernels and _takes(d <= fused_attention.MAX_D))
+                                           h, bands, kern)
         else:
             q, k, v = _qkv_cm_heads(xw, wqkv, bqkv, dt, h)
             mask = _inflate_mask(bands, bands, dt) if shift else None

@@ -241,6 +241,8 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
         if t is not None and t.device != x.device:
             raise ValueError(f"operand on {t.device}, x on {x.device}")
     if keep_w:
+        if wqkv.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"wqkv must be float32 or bfloat16, got {wqkv.dtype}")
         w = wqkv
     elif parts is None:
         w = wqkv.to(x.dtype).contiguous()
@@ -345,15 +347,10 @@ def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     tc = x.dtype == torch.bfloat16
     if tc:
         _check_d("window_half", d, _SMALL_MAX_D)
-        # w where the model keeps it (fp32 or bf16, any strides): the
-        # kernel rounds it to bf16 in shared memory
-        if wqkv.dtype not in (torch.float32, torch.bfloat16):
-            wqkv = wqkv.float()
-        x, w, b, (s,), (bias,), (bands,) = _operands(
-            x, wqkv, bqkv, [logit_scale], [bias], [bands], keep_w=True)
-    else:
-        x, w, b, (s,), (bias,), (bands,) = _operands(
-            x, wqkv, bqkv, [logit_scale], [bias], [bands])
+    # the tensor-core kernel reads w where the model keeps it (fp32 or bf16,
+    # any strides) and rounds it to bf16 in shared memory
+    x, w, b, (s,), (bias,), (bands,) = _operands(
+        x, wqkv, bqkv, [logit_scale], [bias], [bands], keep_w=tc)
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
     lib = cuda_build.library()
     if tc:
@@ -365,7 +362,7 @@ def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     else:
         err = lib.grlir_window_half(
             _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
-            _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift), 0, _stream(x))
+            _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift), _stream(x))
     cuda_build.check(err, "window_half", f"window {window} at d={d}")
     _count_route(window_half, x)
     return y

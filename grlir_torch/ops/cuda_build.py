@@ -32,7 +32,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # otherwise pass a Python int as a 32-bit int and cut the pointer)
 _COSINE = [_P] * 4 + [_L] * 16 + [_P] * 4 + [_I] * 7 + [_P]
 SIGNATURES = {
-    "grlir_window_half": [_P] * 7 + [_I] * 10 + [_P],
+    "grlir_window_half": [_P] * 7 + [_I] * 9 + [_P],
     "grlir_window_half_mma": [_P] * 2 + [_L] * 2 + [_I] + [_P] * 5 + [_I] * 9 + [_P],
     "grlir_stripe_half": [_P] * 11 + [_I] * 11 + [_P],
     "grlir_stripe_half_mma": [_P] * 12 + [_I] * 12 + [_P],

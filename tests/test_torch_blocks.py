@@ -36,8 +36,8 @@ def test_block_with_cab_matches_jax(i):
     _check_block(i, local=True)
 
 
-def _check_block(i, local, dim=DIM, window=WINDOW, size=SIZE, use_pallas=False,
-                 engine="v3", batch=2):
+def _check_block(i, local, dim=DIM, window=WINDOW, size=SIZE,
+                 use_pallas=False, engine="v3", batch=2):
     sched = dict(window_shift=i % 2 == 0, stripe_type="H" if i % 2 == 0 else "W",
                  stripe_shift=i % 4 in (2, 3))
     jblock = JBlock(dim=dim, num_heads_w=HEADS, num_heads_s=HEADS,
@@ -74,7 +74,8 @@ def _check_block(i, local, dim=DIM, window=WINDOW, size=SIZE, use_pallas=False,
 def test_wide_head_block_matches_jax(engine, window, size):
     tba.reset_launches()
     _check_block(0, local=False, dim=256, window=window, size=size,
-                 use_pallas="v3" if engine == "v3" else True, engine=engine, batch=1)
+                 use_pallas="v3" if engine == "v3" else True, engine=engine,
+                 batch=1)
     assert (tba.wide_halves, tba.unrouted_halves) == (1, 0)
 
 
