@@ -242,7 +242,8 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
             raise ValueError(f"operand on {t.device}, x on {x.device}")
     if keep_w:
         if wqkv.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"wqkv must be float32 or bfloat16, got {wqkv.dtype}")
+            raise TypeError(
+                f"wqkv must be float32 or bfloat16, got {wqkv.dtype}")
         w = wqkv
     elif parts is None:
         w = wqkv.to(x.dtype).contiguous()
