@@ -41,7 +41,7 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      256^2 forward timed); the repair of geometries no TPU kernel takes (a
      GRL-base dn 1080x1920 frame restored whole in engine v3, depth cut to
      one stage of four blocks); timing of each kernel.
-  Since slice 6: B1's bf16 launches take one fused tensor-core kernel and
+  Across the phases, B1's bf16 launches take one fused tensor-core kernel and
   are counted by route like B2-B4 (B1 is gated like them in bf16, at
   GRL-S's, GRL-base's and head dim 64's widths); B1's comparison is shown
   to be real (its launches counted, `got` and `want` distinct storage, its
@@ -257,8 +257,8 @@ def main() -> int:
     def rnd(*shape, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dev)
 
-    # the inputs of checks added since slice 6 come from a generator of
-    # their own, so the earlier checks keep their inputs
+    # the inputs of the head-dim-64 and gradient checks come from a
+    # generator of their own, so the other checks keep their inputs
     g6 = torch.Generator().manual_seed(6)
 
     def rnd6(*shape, std=1.0):
