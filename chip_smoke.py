@@ -1240,7 +1240,7 @@ def main() -> int:
                 return args, lambda a, k: ba.window_half(*a, win_, g_["bands_w"], win_[0] // 2,
                                                          kernels=k)
             stripe, df_ = ((8, 16), 4) if kind == "stripe_half" else ((64, 64), 2)
-            size = (32, 64) if kind == "stripe_half" else (128, 128)
+            size = (32, 64) if kind == "stripe_half" else (64, 64)
             n1_, n2_ = stripe[0] * stripe[1], (stripe[0] // df_) * (stripe[1] // df_)
             args = [rnd6(1, *size, 64).to(dtype),
                     rnd6(1, size[0] // df_, size[1] // df_, 96).to(dtype), w_, b_, l1,
