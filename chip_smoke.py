@@ -48,9 +48,11 @@ Phases, each printing its numbers on lines of its own and raising on failure:
   output moving with w x 1.001); B6/B7 run one 3xTF32 tensor-core kernel,
   held to fp32's 1e-4 in both input types beside the plain version's own
   spread against a float64 product, also at head dim 64; one block of
-  2 + 2 heads of d = 64 per engine, kernels on against off, counts the
-  halves whose kernel does not take that head dim (`wide_halves`); B1-B4
-  under grad return the plain version's gradients.
+  2 + 2 heads of d = 64 per engine at GRL-S's geometry and one at
+  GRL-base's, kernels on against off, every half on its kernel (B1-B5 and
+  B6/B7 take head dims up to 64); B1-B4 under grad run their kernel
+  forward (its output to the bit) and return the plain version's
+  gradients.
 Every kernel path holds `block_attn.unrouted_halves` at 0.
 Then one JSON line of per-kernel results, the nvidia-smi line, and last the
 result line.  Exits non-zero, printing no result, without a CUDA device or
@@ -531,7 +533,7 @@ def main() -> int:
 
     def reset_counts():
         """Every launch count, the counts by route and
-        block_attn.unrouted_halves and wide_halves to 0."""
+        block_attn.unrouted_halves to 0."""
         ba.reset_launches()
         for k in all_kernels:
             k.launches = 0
@@ -604,7 +606,7 @@ def main() -> int:
               f"{ba.unrouted_halves}, PSNR kernels vs plain {psnr(y_k, y_p):.2f} dB, rel L2 "
               f"{rel_l2(y_k, y_p):.3e}")
         check(per_fwd == expect(window_half=n_blocks, stripe_half=n_blocks)
-              and ba.unrouted_halves == 0 and ba.wide_halves == 0, f"GRL-S launches {per_fwd}")
+              and ba.unrouted_halves == 0, f"GRL-S launches {per_fwd}")
         check(per_route == expect_routes(window_half=n_blocks, stripe_half=n_blocks),
               f"GRL-S bf16 routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * GRL_S_HW, 4 * GRL_S_HW, 3)
@@ -852,16 +854,15 @@ def main() -> int:
                 time_case(kname + " (dn)", label, case, xc, 3, 1, {})
         lr = torch.rand(1, BASE_HW, BASE_HW, 3, generator=g).to(dev)
         with torch.no_grad():
-            # the plain forward takes ~0.74 s, the plain dn tile pair ~2.2 s:
-            # few runs keep the script's wall
-            k_ms, p_ms = ab_ms(lambda: base_plain(lr), lambda: base(lr), 2, 1)
+            # the plain forward takes ~0.74 s, the plain dn tile pair ~2.2 s
+            k_ms, p_ms = ab_ms(lambda: base_plain(lr), lambda: base(lr), 5, 2)
         mp = BASE_HW * BASE_HW / 1e6
         print(f"[time] GRL-base x4 {BASE_HW}^2 bs1 bf16 forward (window 32, stripes 64x64, "
               f"df 2): kernels {k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), plain "
               f"{p_ms:.3f} ms ({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
         tiles = torch.rand(2, 256, 256, 3, generator=g).to(dev)
         with torch.no_grad():
-            k_ms, p_ms = ab_ms(lambda: dn_plain(tiles), lambda: dn(tiles), 1, 1)
+            k_ms, p_ms = ab_ms(lambda: dn_plain(tiles), lambda: dn(tiles), 3, 1)
             for tag, m in (("kernels", dn), ("plain", dn_plain)):
                 torch.cuda.reset_peak_memory_stats()
                 m(tiles)
@@ -1191,41 +1192,52 @@ def main() -> int:
         del rp, rp_plain, out, ref
 
     with Phase("C2: head dim 64 blocks"):
-        # one GRL block of 2 + 2 heads of d = 64 (dim 256) per engine at
-        # GRL-S's geometry on 256^2, bf16, kernels on against off: B1 or B6
-        # take the window half; the stripe half's kernel (B2's bf16 route,
-        # B5 for 8 x 64 stripes) holds 32 columns and runs plain, counted
-        # in wide_halves
+        # one GRL block of 2 + 2 heads of d = 64 (dim 256) per engine, bf16,
+        # kernels on against off: at GRL-S's geometry on 256^2 B1 and B2
+        # (v3) or B6 and B5 twice (fused, 8 x 64 stripes); at GRL-base's
+        # eval geometry on 128^2 B3 and B4's two steps (v3) or B5 three
+        # times (fused).  Every half runs its kernel.
         from grlir_torch.models.blocks import EfficientMixAttnTransformerBlock
-        geom_s = geometry_tensors(s_cfg.geometry_config, (GRL_S_HW, GRL_S_HW), dev)
         x = rnd6(1, GRL_S_HW, GRL_S_HW, 256)
-        for engine, want, want_routes in (
-                ("v3", expect(window_half=1), expect_routes(window_half=1)),
-                ("fused", expect(fused_window_attention_qkv=1), expect_routes())):
+        for cfg, hw, engine, want in (
+                (s_cfg, GRL_S_HW, "v3", dict(window_half=1, stripe_half=1)),
+                (s_cfg, GRL_S_HW, "fused", dict(fused_window_attention_qkv=1,
+                                                flash_rect_attention=2)),
+                (sr_cfg, BASE_MODEL_HW, "v3", dict(window_half_large=1, stripe_a2w_large=1,
+                                                   stripe_w2a_large=1)),
+                (sr_cfg, BASE_MODEL_HW, "fused", dict(flash_rect_attention=3))):
+            geom = geometry_tensors(cfg.geometry_config, (hw, hw), dev)
             blk = init_weights(EfficientMixAttnTransformerBlock(
-                256, 2, 2, s_cfg.window_size, True, s_cfg.stripe_size, s_cfg.stripe_groups,
-                "H", True, 2.0, s_cfg.anchor_window_down_factor, engine=engine),
+                256, 2, 2, cfg.window_size, True, cfg.stripe_size, cfg.stripe_groups,
+                "H", True, 2.0, cfg.anchor_window_down_factor, engine=engine),
                 torch.Generator().manual_seed(5)).eval().to(dev)
+            xb = x[:, :hw, :hw].bfloat16()
             with torch.no_grad():
                 reset_counts()
-                y_k = blk(x.bfloat16(), geom_s, torch.bfloat16, kernels=True)
+                y_k = blk(xb, geom, torch.bfloat16, kernels=True)
                 torch.cuda.synchronize()
-                got, got_routes, wide = counts(), routes(), ba.wide_halves
-                y_p = blk(x.bfloat16(), geom_s, torch.bfloat16, kernels=False)
+                got, got_routes = counts(), routes()
+                y_p = blk(xb, geom, torch.bfloat16, kernels=False)
             r = rel_l2(y_k, y_p)
-            print(f"[C2] block 2+2 heads of d 64, engine {engine}, bf16 {GRL_S_HW}^2: launches "
-                  f"{ {k: n for k, n in got.items() if n} }, routes {got_routes}, wide halves "
-                  f"{wide}, unrouted halves {ba.unrouted_halves}, rel L2 kernels vs plain "
-                  f"{r:.3e} (max 1e-2), finite {bool(torch.isfinite(y_k).all())}")
-            check(got == want and got_routes == want_routes and wide == 1
-                  and ba.unrouted_halves == 0, f"C2 engine {engine} launches {got}, wide {wide}")
-            check(bool(torch.isfinite(y_k).all()) and r <= 1e-2, f"C2 engine {engine} output")
+            name_ = "GRL-S" if cfg is s_cfg else "GRL-base"
+            print(f"[C2] block 2+2 heads of d 64 at {name_}'s geometry, engine {engine}, bf16 "
+                  f"{hw}^2: launches { {k: n for k, n in got.items() if n} }, routes "
+                  f"{ {k: r_ for k, r_ in got_routes.items() if any(r_.values())} }, "
+                  f"unrouted halves {ba.unrouted_halves}, rel L2 kernels vs plain {r:.3e} "
+                  f"(max 1e-2), finite {bool(torch.isfinite(y_k).all())}")
+            routed = {k: n for k, n in want.items() if k in got_routes}
+            check(got == expect(**want) and got_routes == expect_routes(**routed)
+                  and ba.unrouted_halves == 0, f"C2 {name_} engine {engine} launches {got}")
+            check(bool(torch.isfinite(y_k).all()) and r <= 1e-2,
+                  f"C2 {name_} engine {engine} output")
             del blk
 
     with Phase("C3: kernels under grad"):
-        # B1-B4 with kernels on under grad: the kernel runs forward, the
-        # backward is the plain version's, so every operand's gradient
-        # equals kernels=False's; fp32 and bf16, small shapes
+        # B1-B4 with kernels on under grad: the kernel runs forward (its
+        # output equals the no-grad launch's to the bit, and the plain
+        # version's within the route's gate), the backward is the plain
+        # version's, so every operand's gradient equals kernels=False's;
+        # fp32 and bf16, small shapes
         def grad_case(kind, dtype):
             w_, b_ = rnd6(64, 3 * 96, std=0.05), rnd6(3 * 96, std=0.05)
             l1 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
@@ -1252,22 +1264,37 @@ def main() -> int:
                           ("stripe_half", "B2"), ("stripe_a2w_large", "B4a + B4b")):
             for dtype in (torch.float32, torch.bfloat16):
                 args, call = grad_case(kind, dtype)
-                grads, ran = [], []
+                with torch.no_grad():
+                    y_ng = {kern: call(args, kern) for kern in (True, False)}
+                grads, ran, same = [], [], []
                 for kern in (True, False):
                     leaves = [a.detach().clone().requires_grad_(True) for a in args]
                     reset_counts()
                     y = call(leaves, kern)
                     ran.append(sum(counts().values()))
+                    same.append(torch.equal(y.detach(), y_ng[kern]))
                     (y.float() * torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
                      ).sum().backward()
                     grads.append([t.grad.float() for t in leaves])
                 worst = max(((g - h).abs().max() / h.abs().max().clamp_min(1e-30)).item()
                             for g, h in zip(*grads))
+                y_k_, y_p_ = y_ng[True].float(), y_ng[False].float()
+                y_err = (y_k_ - y_p_).abs().max().item()
+                if dtype == torch.float32:
+                    y_ok = torch.allclose(y_k_, y_p_, atol=FP32_TOL, rtol=FP32_TOL)
+                    y_gate = f"atol {FP32_TOL} rtol {FP32_TOL}"
+                else:
+                    top = y_p_.abs().max().item()
+                    y_ok = y_err <= max(BF16_MAX_ERR, 2 * bf16_ulp(top))
+                    y_gate = f"max {max(BF16_MAX_ERR, 2 * bf16_ulp(top)):.3e}"
                 n_k = {"stripe_a2w_large": 2}.get(kind, 1)
                 print(f"[C3] {tag} {str(dtype)[6:]}: launches under grad {ran[0]} (plain "
-                      f"{ran[1]}), every operand's gradient vs kernels=False: largest "
-                      f"max|diff| / max|grad| {worst:.3e}")
-                check(ran == [n_k, 0] and worst <= 1e-5, f"C3 {tag} {dtype}")
+                      f"{ran[1]}), y under grad equal to the no-grad launch's {same[0]}, "
+                      f"kernel y vs plain max|diff| {y_err:.3e} (gate {y_gate}), every "
+                      f"operand's gradient vs kernels=False: largest max|diff| / max|grad| "
+                      f"{worst:.3e}")
+                check(ran == [n_k, 0] and all(same) and y_ok and worst <= 1e-5,
+                      f"C3 {tag} {dtype}")
 
     with Phase("fused engines timing"):
         # one shape a kernel for the per-kernel line (the shifted shapes of
@@ -1290,7 +1317,7 @@ def main() -> int:
               f"({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
         lr = torch.rand(1, BASE_HW, BASE_HW, 3, generator=g).to(dev)
         with torch.no_grad():
-            k_ms, p_ms = ab_ms(lambda: bf_plain(lr), lambda: bf(lr), 1, 1)
+            k_ms, p_ms = ab_ms(lambda: bf_plain(lr), lambda: bf(lr), 3, 1)
         mp = BASE_HW * BASE_HW / 1e6
         print(f"[time] GRL-base x4 {BASE_HW}^2 bs1 bf16 forward, engine fused (window 32, "
               f"stripes 64x64, df 2): kernels {k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), "

@@ -37,17 +37,17 @@ tokens_major_kernel(const T* __restrict__ src, T* __restrict__ dst, int d, int N
   const int gh = blockIdx.y, n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   const T* s = src + (size_t)gh * d * N + n;
-  float v[kDP];
+  float v[kMaxD];
   float ss = 0.f;
 #pragma unroll
-  for (int e = 0; e < kDP; ++e) {
+  for (int e = 0; e < kMaxD; ++e) {
     v[e] = e < d ? to_f(s[(size_t)e * N]) : 0.f;
     ss = fmaf(v[e], v[e], ss);
   }
   const float inv = norm ? rsqrtf(fmaxf(ss, 1e-24f)) : 1.f;
   T* o = dst + ((size_t)gh * N + n) * d;
 #pragma unroll
-  for (int e = 0; e < kDP; ++e)
+  for (int e = 0; e < kMaxD; ++e)
     if (e < d) o[e] = from_f<T>(v[e] * inv);
 }
 
@@ -65,7 +65,7 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
                  const void* bias, const int* bands_q, const int* bands_k, void* ws_q,
                  void* ws_kv, void* y, int groups, int windows, int heads, int d, int N1,
                  int N2, cudaStream_t stream) {
-  if (d > kDP) return -1;
+  if (d > kMaxD) return -1;
   const int gh = groups * heads;
   T* wk = static_cast<T*>(ws_kv);
   T* wv = wk + (size_t)gh * N2 * d;
@@ -100,7 +100,7 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
 // scale (heads,) fp32; bias (heads, N1, N2) in x's type; bands_q (windows, N1) and
 // bands_k (windows, N2) int32, or both null (window g of the batch reads row g % windows);
 // ws_q: groups * heads * N1 * d and ws_kv: 2 * groups * heads * N2 * d elements of x's
-// type; y (groups, heads, d, N1) out.  Returns 0, -1 (d > 32 or shared memory) or a
+// type; y (groups, heads, d, N1) out.  Returns 0, -1 (d > 64 or shared memory) or a
 // cudaError_t.
 extern "C" int grlir_flash_rect_attention(const void* q, const void* k, const void* v,
                                           const float* scale, const void* bias,

@@ -29,7 +29,8 @@
 // Every block spreads its 32 query rows over the lanes of a warp (each lane
 // holds its q row in registers) and its keys over the 8 warps, so a logit is
 // 32 register FMAs against 8 broadcast float4 loads of the key, and the
-// product with v is the same shape.  Head dims up to 32 (zero-padded).
+// product with v is the same shape.  Head dims up to 64, zero-padded to DP =
+// 32 or 64 columns (`head_cols`).
 #pragma once
 
 #include "common.cuh"
@@ -37,24 +38,39 @@
 namespace grlir {
 namespace {
 
-constexpr int kDP = 32;     // head dim, padded with zeros
+constexpr int kMaxD = 64;   // widest head dim the kernels take
 constexpr int kRows = 32;   // query rows per attention block: one per lane
 constexpr int kKeys = 128;  // keys staged per chunk
 constexpr int kLds = kKeys + 1;
-// floats of shared memory of attend_kernel: key and value chunks (reused for
-// the cross-warp sum), logits of the chunk, row max and sum
-constexpr int kAttendSmem = 2 * kKeys * kDP + kRows * kLds + 2 * kRows;
-static_assert(kWarps * kDP * kRows <= 2 * kKeys * kDP, "reduction buffer");
+
+// Columns a head's rows are padded to: 32, or 64 above 32.
+inline int head_cols(int d) { return d <= 32 ? 32 : 64; }
+
+// floats of shared memory of attend_kernel<DP>: key and value chunks (reused
+// for the cross-warp sum), logits of the chunk, row max and sum
+template <int DP>
+constexpr int attend_smem_floats() {
+  return 2 * kKeys * DP + kRows * kLds + 2 * kRows;
+}
+static_assert(kWarps * kRows <= 2 * kKeys, "reduction buffer");
+
+// The most dynamic shared memory one block can have, in *limit; returns 0 or
+// a cudaError_t.
+inline int smem_limit(int* limit) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
+}
 
 // Set a kernel's dynamic shared memory, or return -1 when one block cannot
 // have that much.
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int limit = 0;
+  const int err = smem_limit(&limit);
+  if (err) return err;
   if (bytes > static_cast<size_t>(limit)) return -1;
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -117,7 +133,8 @@ project_regions_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // an[g][head][a][e] = anchor token a of region g (anchor regions (ah, aw)
 // tile the (Ha, Wa) anchor map, which the caller has rolled), unit-normed
 // and rounded to T, in rows of ld >= d elements (zeros past d).  One warp
-// per token, one lane per channel (d, ld <= 32).  Grid (regions * B, heads,
+// per token, lanes e and e + 32 take channels e and e + 32 (d, ld <= 64).
+// Grid (regions * B, heads,
 // token groups): block z takes tokens z * kWarps + warp, every gridDim.z *
 // kWarps.
 template <typename T>
@@ -129,9 +146,17 @@ anchor_units_kernel(const T* __restrict__ anchor, T* __restrict__ an, int Ha, in
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int a = blockIdx.z * kWarps + warp; a < Na; a += gridDim.z * kWarps) {
     const size_t p = reg.pixel(g, a);
-    const float v = lane < d ? to_f(anchor[p * Cs + hh * d + lane]) : 0.f;
-    const float inv = rsqrtf(fmaxf(warp_sum(v * v), 1e-24f));
-    if (lane < ld) an[(((size_t)g * heads + hh) * Na + a) * ld + lane] = from_f<T>(v * inv);
+    float v[kMaxD / 32];
+#pragma unroll
+    for (int i = 0; i < kMaxD / 32; ++i) {
+      const int e = lane + 32 * i;
+      v[i] = e < d ? to_f(anchor[p * Cs + hh * d + e]) : 0.f;
+    }
+    const float inv = rsqrtf(fmaxf(warp_sum(fmaf(v[1], v[1], v[0] * v[0])), 1e-24f));
+    T* row = an + (((size_t)g * heads + hh) * Na + a) * ld;
+#pragma unroll
+    for (int i = 0; i < kMaxD / 32; ++i)
+      if (lane + 32 * i < ld) row[lane + 32 * i] = from_f<T>(v[i] * inv);
   }
 }
 
@@ -158,14 +183,16 @@ struct AttnArgs {
 // y = softmax(q . k^T * scale + bias + mask) v for 32 query rows of one
 // (region, head); see the note at the top.  kDeferred: B3's numerics (the
 // exps rounded, 1/sum applied to the product), else B4's (probabilities
-// normalised, then rounded).  Grid (ceil(Nq / 32), regions * B * heads).
-template <typename T, typename BT, bool kDeferred>
+// normalised, then rounded).  DP: the head's columns in registers and shared
+// memory (32 or 64, zeros past d).  Grid (ceil(Nq / 32), regions * B *
+// heads).
+template <typename T, typename BT, bool kDeferred, int DP>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(AttnArgs a) {
   extern __shared__ float smem[];
-  float* kc = smem;                   // [kKeys][kDP]
-  float* vc = kc + kKeys * kDP;       // [kKeys][kDP]
-  float* sc = vc + kKeys * kDP;       // [kRows][kLds]
+  float* kc = smem;                   // [kKeys][DP]
+  float* vc = kc + kKeys * DP;        // [kKeys][DP]
+  float* sc = vc + kKeys * DP;        // [kRows][kLds]
   float* mrow = sc + kRows * kLds;    // [kRows] running max
   float* lrow = mrow + kRows;         // [kRows] running sum
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -179,10 +206,10 @@ attend_kernel(AttnArgs a) {
   const int* bk = a.band_k ? a.band_k + (size_t)(g % a.regions) * a.Nk : nullptr;
   const float scale = a.scale ? a.scale[hh] : 1.f;
 
-  float q[kDP], acc[kDP];
+  float q[DP], acc[DP];
   const int r = row0 + lane;
 #pragma unroll
-  for (int e = 0; e < kDP; ++e) {
+  for (int e = 0; e < DP; ++e) {
     q[e] = (r < a.Nq && e < d) ? to_f(qp[(size_t)r * d + e]) : 0.f;
     acc[e] = 0.f;
   }
@@ -195,8 +222,8 @@ attend_kernel(AttnArgs a) {
     for (int c0 = 0; c0 < a.Nk; c0 += kKeys) {
       const int nk = min(kKeys, a.Nk - c0);
       __syncthreads();  // the previous chunk is consumed
-      for (int i = threadIdx.x; i < kKeys * kDP; i += kThreads) {
-        const int kk = i / kDP, e = i % kDP;
+      for (int i = threadIdx.x; i < kKeys * DP; i += kThreads) {
+        const int kk = i / DP, e = i % DP;
         const bool in = kk < nk && e < d;
         kc[i] = in ? to_f(kp[(size_t)(c0 + kk) * d + e]) : 0.f;
         if (pass) vc[i] = in ? to_f(vp[(size_t)(c0 + kk) * d + e]) : 0.f;
@@ -204,10 +231,10 @@ attend_kernel(AttnArgs a) {
       __syncthreads();
       // logits q . k: lane = query row, warps take the keys in turn
       for (int kk = warp; kk < nk; kk += kWarps) {
-        const float4* k4 = reinterpret_cast<const float4*>(kc + kk * kDP);
+        const float4* k4 = reinterpret_cast<const float4*>(kc + kk * DP);
         float s = 0.f;
 #pragma unroll
-        for (int e4 = 0; e4 < kDP / 4; ++e4) {
+        for (int e4 = 0; e4 < DP / 4; ++e4) {
           const float4 kv = k4[e4];
           s = fmaf(q[4 * e4], kv.x, s);
           s = fmaf(q[4 * e4 + 1], kv.y, s);
@@ -257,9 +284,9 @@ attend_kernel(AttnArgs a) {
       // probabilities times v: lane = query row, warps take the keys in turn
       for (int kk = warp; kk < nk; kk += kWarps) {
         const float p = sc[lane * kLds + kk];
-        const float4* v4 = reinterpret_cast<const float4*>(vc + kk * kDP);
+        const float4* v4 = reinterpret_cast<const float4*>(vc + kk * DP);
 #pragma unroll
-        for (int e4 = 0; e4 < kDP / 4; ++e4) {
+        for (int e4 = 0; e4 < DP / 4; ++e4) {
           const float4 vv = v4[e4];
           acc[4 * e4] = fmaf(p, vv.x, acc[4 * e4]);
           acc[4 * e4 + 1] = fmaf(p, vv.y, acc[4 * e4 + 1]);
@@ -274,7 +301,7 @@ attend_kernel(AttnArgs a) {
   __syncthreads();
   float* red = kc;
 #pragma unroll
-  for (int e = 0; e < kDP; ++e) red[(warp * kDP + e) * kRows + lane] = acc[e];
+  for (int e = 0; e < DP; ++e) red[(warp * DP + e) * kRows + lane] = acc[e];
   __syncthreads();
   T* out = static_cast<T*>(a.out);
   for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
@@ -283,7 +310,7 @@ attend_kernel(AttnArgs a) {
     const int row = row0 + rr;
     if (row >= a.Nq) continue;
     float y = 0.f;
-    for (int w = 0; w < kWarps; ++w) y += red[(w * kDP + e) * kRows + rr];
+    for (int w = 0; w < kWarps; ++w) y += red[(w * DP + e) * kRows + rr];
     if (kDeferred) y *= 1.f / lrow[rr];
     size_t o;
     if (a.rw > 0) {
@@ -298,16 +325,24 @@ attend_kernel(AttnArgs a) {
   }
 }
 
-// Launch attend_kernel; returns 0, -1 (shared memory) or a cudaError_t.
-template <typename T, typename BT, bool kDeferred>
-int launch_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
-  auto kernel = attend_kernel<T, BT, kDeferred>;
-  const size_t smem = sizeof(float) * kAttendSmem;
+template <typename T, typename BT, bool kDeferred, int DP>
+int launch_attend_cols(const AttnArgs& a, int groups, cudaStream_t stream) {
+  auto kernel = attend_kernel<T, BT, kDeferred, DP>;
+  const size_t smem = sizeof(float) * attend_smem_floats<DP>();
   const int err = set_smem(kernel, smem);
   if (err) return err;
   const dim3 grid((a.Nq + kRows - 1) / kRows, groups * a.heads);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch attend_kernel at a.d's padded width; returns 0, -1 (d > 64 or
+// shared memory) or a cudaError_t.
+template <typename T, typename BT, bool kDeferred>
+int launch_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
+  if (a.d > kMaxD) return -1;
+  if (a.d <= 32) return launch_attend_cols<T, BT, kDeferred, 32>(a, groups, stream);
+  return launch_attend_cols<T, BT, kDeferred, 64>(a, groups, stream);
 }
 
 // Launch project_regions_kernel; returns 0, -1 or a cudaError_t.

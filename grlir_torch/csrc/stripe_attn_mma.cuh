@@ -10,13 +10,14 @@
 //   mma_project_kernel  64 tokens of a region a block, gathered through
 //                       Regions::pixel (the cyclic shift), times w (its
 //                       transpose in bf16, rows 16-byte aligned, each head
-//                       zero-padded to 32 columns in shared memory) on
+//                       zero-padded to DP columns in shared memory) on
 //                       tensor cores; fp32 bias, per-head unit norm, then a
 //                       per-part, per-head scale where the TPU folds the
 //                       logit scale into q or k before rounding (B2, B3);
-//                       bf16 rows of kDP = 32 (zeros past d) into a
-//                       workspace [region][head][part][token][32];
-//   pad_rows_kernel     rows of d values -> rows of 32 (B4b's x1);
+//                       bf16 rows of DP = 32 or 64 (`head_cols`, zeros
+//                       past d) into a workspace [region][head][part]
+//                       [token][DP];
+//   pad_rows_kernel     rows of d values -> rows of DP (B4b's x1);
 //   mma_attend_kernel   one block of 4 warps per (region, head, 64 query
 //                       rows), 16 rows a warp.  Keys, values, the bias tile
 //                       (64 rows x 64 keys, bf16) and the key band ids
@@ -55,10 +56,16 @@ typedef __nv_bfloat16 bf16;
 constexpr int kMmaThreads = 128;    // 4 warps
 constexpr int kMmaRows = 64;        // query rows (attention) or tokens (projection) a block
 constexpr int kMmaKeys = 64;        // keys a chunk
-constexpr int kLdK = kDP + 8;       // bf16 smem row of q/k/v: 80 B, ldmatrix without conflicts
 constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
 
-// ws[g][head][p][t][0..kDP) for the parts p < nparts: token t of region g
+// bf16 smem row of q/k/v of a head padded to DP columns: 80 or 144 B, odd
+// multiples of 16 B, so ldmatrix reads them without bank conflicts
+template <int DP>
+__host__ __device__ constexpr int ld_k() {
+  return DP + 8;
+}
+
+// ws[g][head][p][t][0..DP) for the parts p < nparts: token t of region g
 // times w plus b, unit-normed for the parts set in norm_mask, times
 // scale0[head] (part 0) or scale1[head] (part 1) where given (after the
 // norm, as the TPU folds its logit scales), rounded to bf16; zeros past d.
@@ -66,15 +73,19 @@ constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
 // d + e holding column e of that part's head in its first C values (rows
 // Cp apart, Cp a multiple of 16; the rest is not read); bp: (nparts * heads
 // * d,) fp32 in the same order.
-// Grid (regions * B, ceil(N / 64)).  Warp w takes tokens 16w..16w+15 of the
-// tile and one head's 32 columns at a time.
+// Grid (regions * B, ceil(N / 64), ceil(heads / hp)): block z takes heads
+// z hp .. z hp + hp - 1, whose w rows fit its shared memory (all heads at
+// the model's widths).  Warp w takes tokens 16w..16w+15 of the tile and
+// one head's DP columns at a time.
+template <int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                    const float* __restrict__ bp, const float* __restrict__ scale0,
                    const float* __restrict__ scale1, bf16* __restrict__ ws, Regions reg, int C,
-                   int Cp, int heads, int d, int nparts, int norm_mask) {
+                   int Cp, int heads, int d, int nparts, int norm_mask, int hp) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int ld = Cp + 8, ncols = nparts * heads * kDP;
+  const int h0 = blockIdx.z * hp, nh = min(hp, heads - h0);
+  const int ld = Cp + 8, ncols = nparts * nh * DP;
   const int N = reg.rh * reg.rw, g = blockIdx.x, t0 = blockIdx.y * kMmaRows;
   const int nt = min(kMmaRows, N - t0);
   int* pix = reinterpret_cast<int*>(mma_smem);                  // [64]
@@ -84,15 +95,18 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   const int tid = threadIdx.x;
 
   for (int i = tid; i < kMmaRows; i += kMmaThreads) pix[i] = i < nt ? reg.pixel(g, t0 + i) : 0;
-  // w and b: each head's d rows (values) into 32 of shared memory, zeros
-  // past d and past C
-  for (int r = tid; r < ncols; r += kMmaThreads)
-    bsm[r] = r % kDP < d ? bp[(r / kDP) * d + r % kDP] : 0.f;
+  // w and b of the block's heads: each head's d rows (values) into DP of
+  // shared memory (row (p nh + hl) DP + e for head h0 + hl), zeros past d
+  // and past C
+  auto src_row = [&](int r) {  // row of wt and bp of shared row r
+    const int ph = r / DP;
+    return (size_t)((ph / nh) * heads + h0 + ph % nh) * d + r % DP;
+  };
+  for (int r = tid; r < ncols; r += kMmaThreads) bsm[r] = r % DP < d ? bp[src_row(r)] : 0.f;
   for (int i = tid; i < ncols * (Cp / 8); i += kMmaThreads) {
-    const int r = i / (Cp / 8), c = (i % (Cp / 8)) * 8, e = r % kDP;
+    const int r = i / (Cp / 8), c = (i % (Cp / 8)) * 8, e = r % DP;
     const int bytes = e < d ? 2 * max(0, min(8, C - c)) : 0;
-    cp_async16_first(wsm + r * ld + c, bytes ? wt + ((size_t)(r / kDP) * d + e) * Cp + c : wt,
-                     bytes);
+    cp_async16_first(wsm + r * ld + c, bytes ? wt + src_row(r) * Cp + c : wt, bytes);
   }
   __syncthreads();  // pix, bsm
   // x rows (2C bytes, 8-byte aligned when C % 4 == 0): 8-byte copies, or
@@ -115,30 +129,30 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
   __syncthreads();
 
   const int lane = tid % 32, warp = tid / 32, gr = lane / 4, qd = lane % 4, mi = lane / 8;
-  for (int ph = 0; ph < nparts * heads; ++ph) {
-    const int p = ph / heads, hh = ph % heads;
-    float acc[4][4];
+  for (int ph = 0; ph < nparts * nh; ++ph) {
+    const int p = ph / nh, hh = h0 + ph % nh;
+    float acc[DP / 8][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     for (int kk = 0; kk < Cp / 16; ++kk) {
       unsigned a[4];
       ldmatrix_x4(a, xs + (warp * 16 + (mi & 1) * 8 + lane % 8) * ld + kk * 16 + (mi >> 1) * 8);
 #pragma unroll
-      for (int n = 0; n < 4; n += 2) {
+      for (int n = 0; n < DP / 8; n += 2) {
         unsigned b[4];
-        ldmatrix_x4(b, wsm + (ph * kDP + n * 8 + (mi >> 1) * 8 + lane % 8) * ld + kk * 16 +
+        ldmatrix_x4(b, wsm + (ph * DP + n * 8 + (mi >> 1) * 8 + lane % 8) * ld + kk * 16 +
                            (mi & 1) * 8);
         mma_bf16(acc[n], a, b[0], b[1]);
         mma_bf16(acc[n + 1], a, b[2], b[3]);
       }
     }
-    // fp32 bias, then the unit norm over the head's 32 columns: a row's
+    // fp32 bias, then the unit norm over the head's DP columns: a row's
     // columns sit in the 4 lanes of a quad
-    const float* bb = bsm + ph * kDP;
+    const float* bb = bsm + ph * DP;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] += bb[n * 8 + 2 * qd + (e & 1)];
     if (norm_mask >> p & 1) {
@@ -146,13 +160,13 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
       for (int r = 0; r < 2; ++r) {
         float ss = 0.f;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < DP / 8; ++n) {
           ss = fmaf(acc[n][2 * r], acc[n][2 * r], ss);
           ss = fmaf(acc[n][2 * r + 1], acc[n][2 * r + 1], ss);
         }
         const float inv = rsqrtf(fmaxf(quad_sum(ss), 1e-24f));
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
+        for (int n = 0; n < DP / 8; ++n) {
           acc[n][2 * r] *= inv;
           acc[n][2 * r + 1] *= inv;
         }
@@ -162,30 +176,31 @@ mma_project_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     if (scale) {
       const float sc = scale[hh];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[n][e] *= sc;
     }
-    bf16* out = ws + (((size_t)g * heads + hh) * nparts + p) * N * kDP;
+    bf16* out = ws + (((size_t)g * heads + hh) * nparts + p) * N * DP;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int t = warp * 16 + gr + 8 * r;
       if (t >= nt) continue;
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
-        *reinterpret_cast<unsigned*>(out + (size_t)(t0 + t) * kDP + n * 8 + 2 * qd) =
+      for (int n = 0; n < DP / 8; ++n)
+        *reinterpret_cast<unsigned*>(out + (size_t)(t0 + t) * DP + n * 8 + 2 * qd) =
             pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
     }
   }
 }
 
-// out[r][0..kDP) = in[r][0..d), zeros past d.
+// out[r][0..dp) = in[r][0..d), zeros past d.
 __global__ void __launch_bounds__(kThreads)
-pad_rows_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, long long rows, int d) {
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < rows * kDP;
+pad_rows_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, long long rows, int d,
+                int dp) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < rows * dp;
        i += (long long)gridDim.x * kThreads) {
-    const long long r = i / kDP;
-    const int e = static_cast<int>(i % kDP);
+    const long long r = i / dp;
+    const int e = static_cast<int>(i % dp);
     out[i] = e < d ? in[r * d + e] : __float2bfloat16(0.f);
   }
 }
@@ -331,22 +346,28 @@ __device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float 
   }
 }
 
-// bytes of one pipeline stage: k, v, bias tile, key band ids
-constexpr int kStageBytes = 2 * kMmaKeys * kLdK * 2 + kMmaRows * kLdB * 2 + kMmaKeys * 4;
-constexpr int kQBytes = kMmaRows * kLdK * 2;
 constexpr int kStages = 2;  // chunks in shared memory: one computed, the next in flight
-constexpr int kMmaAttendSmem = kQBytes + kStages * kStageBytes;
-static_assert(kStageBytes % 16 == 0 && kQBytes % 16 == 0, "16-byte aligned stages");
-static_assert(kMmaRows * (kDP + 2) * 4 <= kStageBytes, "output staging fits a stage");
+
+// Shared memory of mma_attend_kernel<DP>: the q tile, then kStages stages of
+// k, v, the bias tile and the key band ids.
+template <int DP>
+struct AttendSmem {
+  static constexpr int kStage = 2 * kMmaKeys * ld_k<DP>() * 2 + kMmaRows * kLdB * 2 + kMmaKeys * 4;
+  static constexpr int kQ = kMmaRows * ld_k<DP>() * 2;
+  static constexpr int kBytes = kQ + kStages * kStage;
+  static_assert(kStage % 16 == 0 && kQ % 16 == 0, "16-byte aligned stages");
+  static_assert(kMmaRows * (DP + 2) * 4 <= kStage, "output staging fits a stage");
+};
 
 // y = softmax(q . k^T * scale + bias + mask) v for 64 query rows of one
-// (region, head); see the note at the top.  a.q, a.k, a.v: rows of kDP
+// (region, head); see the note at the top.  a.q, a.k, a.v: rows of DP
 // bf16, zero past d; a.bias: (heads, Nq, Nk) bf16.  bias_vec: the bias
 // rows are 16-byte aligned (Nk % 8 == 0), else element loads.  Grid
 // (groups * ceil(Nq / 64) * heads), the region fastest.
-template <bool kDeferred>
+template <bool kDeferred, int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
+  constexpr int kLdK = ld_k<DP>(), kStageBytes = AttendSmem<DP>::kStage;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   const int tiles = (a.Nq + kMmaRows - 1) / kMmaRows;
   const int g = blockIdx.x % groups, rest = blockIdx.x / groups;
@@ -364,7 +385,7 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
   const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
 
   bf16* qs = reinterpret_cast<bf16*>(mma_smem);  // [64][kLdK]
-  unsigned char* stages = mma_smem + kQBytes;
+  unsigned char* stages = mma_smem + AttendSmem<DP>::kQ;
 
   // stage layout: k [64][kLdK], v [64][kLdK], bias [64][kLdB] bf16, band ids [64]
   auto load = [&](int it) {
@@ -373,10 +394,10 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
     bf16* vs = ks + kMmaKeys * kLdK;
     bf16* bs = vs + kMmaKeys * kLdK;
     int* bks = reinterpret_cast<int*>(bs + kMmaRows * kLdB);
-    for (int i = tid; i < kMmaKeys * (kDP / 8); i += kMmaThreads) {
-      const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+    for (int i = tid; i < kMmaKeys * (DP / 8); i += kMmaThreads) {
+      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
       const bool ok = c0 + r < a.Nk;
-      const size_t off = (size_t)(ok ? c0 + r : 0) * kDP + c;
+      const size_t off = (size_t)(ok ? c0 + r : 0) * DP + c;
       cp_async16(ks + r * kLdK + c, kp + off, ok);
       if (pass) cp_async16(vs + r * kLdK + c, vp + off, ok);
     }
@@ -399,10 +420,10 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
     }
   };
 
-  for (int i = tid; i < kMmaRows * (kDP / 8); i += kMmaThreads) {
-    const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+  for (int i = tid; i < kMmaRows * (DP / 8); i += kMmaThreads) {
+    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const bool ok = row0 + r < a.Nq;
-    cp_async16(qs + r * kLdK + c, qp + (size_t)(ok ? row0 + r : 0) * kDP + c, ok);
+    cp_async16(qs + r * kLdK + c, qp + (size_t)(ok ? row0 + r : 0) * DP + c, ok);
   }
   for (int it = 0; it < kStages - 1; ++it) {  // the q tile joins the first group
     if (it < total) load(it);
@@ -417,12 +438,12 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
     for (int r = 0; r < 2; ++r)
       if (row0 + r0 + 8 * r < a.Nq) bqr[r] = bq[row0 + r0 + 8 * r];
   }
-  unsigned qa[2][4];
+  unsigned qa[DP / 16][4];
   float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};  // this thread's keys
   float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};                // the rows', pass 2
-  float o[4][4];
+  float o[DP / 8][4];
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
@@ -433,7 +454,7 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
     __syncthreads();
     if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
+      for (int kk = 0; kk < DP / 16; ++kk)
         ldmatrix_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * kLdK + kk * 16 +
                                 (mi >> 1) * 8);
     }
@@ -472,18 +493,18 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
 
   // stage the output tile in shared memory, then write it in the caller's
   // layout with neighbouring threads on neighbouring addresses
-  float* os = reinterpret_cast<float*>(stages);                   // [64][kDP + 1]
-  int* opix = reinterpret_cast<int*>(os + kMmaRows * (kDP + 1));  // [64]: NHWC pixels
+  float* os = reinterpret_cast<float*>(stages);                   // [64][DP + 1]
+  int* opix = reinterpret_cast<int*>(os + kMmaRows * (DP + 1));  // [64]: NHWC pixels
   if (a.rw > 0 && tid < kMmaRows) {
     const Regions reg{a.H, a.W, a.rh, a.rw, 0, 0};
     opix[tid] = row0 + tid < a.Nq ? reg.pixel(g, row0 + tid) : 0;
   }
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
+  for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float y = o[n][e];
-      os[(r0 + 8 * (e >> 1)) * (kDP + 1) + n * 8 + 2 * qd + (e & 1)] =
+      os[(r0 + 8 * (e >> 1)) * (DP + 1) + n * 8 + 2 * qd + (e & 1)] =
           kDeferred ? y * inv_l[e >> 1] : y;
     }
   __syncthreads();
@@ -501,15 +522,14 @@ mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
     } else {
       off = ((size_t)gh * a.Nq + row) * d + e;
     }
-    out[off] = __float2bfloat16(os[rr * (kDP + 1) + e]);
+    out[off] = __float2bfloat16(os[rr * (DP + 1) + e]);
   }
 }
 
-// Launch mma_attend_kernel over `groups` regions (B x regions); returns 0,
-// -1 (shared memory) or a cudaError_t.
-template <bool kDeferred>
-int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
-  auto kernel = mma_attend_kernel<kDeferred>;
+template <bool kDeferred, int DP>
+int launch_mma_attend_cols(const AttnArgs& a, int groups, cudaStream_t stream) {
+  auto kernel = mma_attend_kernel<kDeferred, DP>;
+  constexpr int kMmaAttendSmem = AttendSmem<DP>::kBytes;
   const int err = set_smem(kernel, kMmaAttendSmem);
   if (err) return err;
   const int bias_vec =
@@ -521,30 +541,61 @@ int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch mma_project_kernel; returns 0, -1 (shared memory) or a cudaError_t.
-// scale0, scale1: (heads,) fp32 multipliers of parts 0 and 1 after the
-// norm, or null.
-int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale0,
-                       const float* scale1, void* ws, const Regions& reg, int B, int C, int Cp,
-                       int heads, int d, int nparts, int norm_mask, cudaStream_t stream) {
-  const size_t smem = kMmaRows * 4 + (size_t)nparts * heads * kDP * 4 +
-                      sizeof(bf16) * (size_t)(kMmaRows + nparts * heads * kDP) * (Cp + 8);
-  const int err = set_smem(mma_project_kernel, smem);
+// Launch mma_attend_kernel over `groups` regions (B x regions), rows of
+// head_cols(a.d); returns 0, -1 (d > 64 or shared memory) or a cudaError_t.
+template <bool kDeferred>
+int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
+  if (a.d > kMaxD) return -1;
+  if (a.d <= 32) return launch_mma_attend_cols<kDeferred, 32>(a, groups, stream);
+  return launch_mma_attend_cols<kDeferred, 64>(a, groups, stream);
+}
+
+template <int DP>
+int launch_mma_project_cols(const void* x, const void* wt, const float* bp, const float* scale0,
+                            const float* scale1, void* ws, const Regions& reg, int B, int C,
+                            int Cp, int heads, int d, int nparts, int norm_mask,
+                            cudaStream_t stream) {
+  // as many heads a block as their w rows fit beside the x tile
+  auto smem_of = [&](int hp) {
+    return kMmaRows * 4 + (size_t)nparts * hp * DP * 4 +
+           sizeof(bf16) * (size_t)(kMmaRows + nparts * hp * DP) * (Cp + 8);
+  };
+  int limit = 0, hp = heads;
+  int err = smem_limit(&limit);
+  if (err) return err;
+  while (hp > 1 && smem_of(hp) > static_cast<size_t>(limit)) --hp;
+  err = set_smem(mma_project_kernel<DP>, smem_of(hp));
   if (err) return err;
   const int regions = (reg.H / reg.rh) * (reg.W / reg.rw), N = reg.rh * reg.rw;
-  const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows);
-  mma_project_kernel<<<grid, kMmaThreads, smem, stream>>>(
+  const dim3 grid(B * regions, (N + kMmaRows - 1) / kMmaRows, (heads + hp - 1) / hp);
+  mma_project_kernel<DP><<<grid, kMmaThreads, smem_of(hp), stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(wt), bp, scale0, scale1,
-      static_cast<bf16*>(ws), reg, C, Cp, heads, d, nparts, norm_mask);
+      static_cast<bf16*>(ws), reg, C, Cp, heads, d, nparts, norm_mask, hp);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch pad_rows_kernel; returns 0 or a cudaError_t.
+// Launch mma_project_kernel into rows of head_cols(d); returns 0, -1 (d > 64
+// or shared memory) or a cudaError_t.  scale0, scale1: (heads,) fp32
+// multipliers of parts 0 and 1 after the norm, or null.
+int launch_mma_project(const void* x, const void* wt, const float* bp, const float* scale0,
+                       const float* scale1, void* ws, const Regions& reg, int B, int C, int Cp,
+                       int heads, int d, int nparts, int norm_mask, cudaStream_t stream) {
+  if (d > kMaxD) return -1;
+  if (d <= 32)
+    return launch_mma_project_cols<32>(x, wt, bp, scale0, scale1, ws, reg, B, C, Cp, heads, d,
+                                       nparts, norm_mask, stream);
+  return launch_mma_project_cols<64>(x, wt, bp, scale0, scale1, ws, reg, B, C, Cp, heads, d,
+                                     nparts, norm_mask, stream);
+}
+
+// Launch pad_rows_kernel (rows of d -> rows of head_cols(d)); returns 0 or a
+// cudaError_t.
 int launch_pad_rows(const void* in, void* out, long long rows, int d, cudaStream_t stream) {
-  long long blocks = (rows * kDP + kThreads - 1) / kThreads;
+  const int dp = head_cols(d);
+  long long blocks = (rows * dp + kThreads - 1) / kThreads;
   if (blocks > 4096) blocks = 4096;
   pad_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const bf16*>(in), static_cast<bf16*>(out), rows, d);
+      static_cast<const bf16*>(in), static_cast<bf16*>(out), rows, d, dp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,7 @@
 // cores, mma.sync m16n8k16 with bf16 operands and fp32 sums.
 // mma_project_kernel (stripe_attn_mma.cuh) writes q (unit-normed, times
 // s2), k (unit-normed, times s1) and v of every stripe into workspace rows
-// of 32 (zeros past d, so that d = 30 keeps 16-byte copies); the
+// of 32 or 64 (zeros past d, so that d = 30 keeps 16-byte copies); the
 // workspace (25 MB at GRL-S 256^2) stays in the 50 MB
 // L2 for mma_stripe_resident_kernel, one block of 4 warps per (stripe,
 // head).  That block unit-norms the stripe's anchors into shared memory,
@@ -32,7 +32,7 @@
 // 64 (cp.async, double-buffered; two passes: max and sum, then the rounded
 // exps times v), keeps x1 in shared memory, then runs w2a with 16 stripe
 // tokens a warp against the resident anchors and x1.  The workspace round
-// trip costs about twice the bytes of x and y.  Head dim <= 32 (one row of
+// trip costs about twice the bytes of x and y.  Head dim <= 64 (one row of
 // the workspace).
 //
 // fp32 (`grlir_stripe_half`): the TPU kernel then computes in fp32, and
@@ -224,12 +224,13 @@ namespace {
 constexpr int kMmaWarps = kMmaThreads / 32;
 
 // Logits of a warp's 16 rows (A fragments qa) against a chunk of 64 keys
-// (rows of kLdK in shared memory, the first nk valid), plus the fp32 bias
-// bias[row][c0 + key] (the warp's rows start at row0; rows of ld columns;
+// (rows of KS * 16 + 8 in shared memory, the first nk valid), plus the fp32
+// bias bias[row][c0 + key] (the warp's rows start at row0; rows of ld columns;
 // rows past nrows take 0), -100 where the band ids of row and key differ
 // (bk null: no mask); keys past nk are -inf.  bias_vec: 8-byte bias loads
 // (ld even).
-__device__ __forceinline__ void chunk_logits(const unsigned (&qa)[2][4], const bf16* ks, int nk,
+template <int KS>
+__device__ __forceinline__ void chunk_logits(const unsigned (&qa)[KS][4], const bf16* ks, int nk,
                                              const float* bias, int ld, int row0, int nrows,
                                              int c0, bool bias_vec, const int* bk,
                                              const int (&bq)[2], int lane, float (&s)[8][4]) {
@@ -258,23 +259,29 @@ __device__ __forceinline__ void chunk_logits(const unsigned (&qa)[2][4], const b
   mask_logits(s, bk, bq, nk, lane);
 }
 
-// bytes of one a2w pipeline stage: k and v chunks and their band ids
-constexpr int kResStage = 2 * kMmaKeys * kLdK * 2 + kMmaKeys * 4;
-static_assert(kResStage % 16 == 0, "16-byte aligned stages");
+// bytes of one a2w pipeline stage: k and v chunks (rows of DP + 8) and
+// their band ids
+template <int DP>
+__host__ __device__ constexpr int res_stage() {
+  return 2 * kMmaKeys * ld_k<DP>() * 2 + kMmaKeys * 4;
+}
+static_assert(res_stage<32>() % 16 == 0 && res_stage<64>() % 16 == 0, "16-byte aligned stages");
 
-// Shared memory of mma_stripe_resident_kernel for N2 anchors: anchors, x1
-// (rows of kLdK, N2 rounded up to a key chunk) and their band ids, then the
-// stages.
+// Shared memory of mma_stripe_resident_kernel<DP> for N2 anchors: anchors,
+// x1 (rows of DP + 8, N2 rounded up to a key chunk) and their band ids,
+// then the stages.
+template <int DP>
 size_t resident_smem(int N2) {
   const size_t n2p = (N2 + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
-  return n2p * (2 * kLdK * sizeof(bf16) + 4) + kStages * kResStage;
+  return n2p * (2 * ld_k<DP>() * sizeof(bf16) + 4) + kStages * res_stage<DP>();
 }
 
 // Both attentions of one (stripe, head); see the note at the top.  ws:
-// [stripe][head][q|k|v][N1][kDP] from mma_project_kernel (q times s2, k
+// [stripe][head][q|k|v][N1][DP] from mma_project_kernel (q times s2, k
 // times s1); anchor (B, H/df, W/df, Cs) rolled; bias1 (heads, N2, N1),
 // bias2 (heads, N1, N2) fp32; bands (stripes, N1) and bands_a (stripes,
 // N2) or null; y (B, H, W, Cs).  Grid (groups * heads), the stripe fastest.
+template <int DP>
 __global__ void __launch_bounds__(kMmaThreads)
 mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__ anchor,
                            const float* __restrict__ bias1, const float* __restrict__ bias2,
@@ -282,15 +289,16 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
                            bf16* __restrict__ y, int H, int W, int Cs, int heads, int sh, int sw,
                            int df, int groups) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
+  constexpr int kLdK = ld_k<DP>(), kResStage = res_stage<DP>();
   const int g = blockIdx.x % groups, hh = blockIdx.x / groups;
   const int ah = sh / df, aw = sw / df, N1 = sh * sw, N2 = ah * aw, d = Cs / heads;
   const int n2p = (N2 + kMmaKeys - 1) / kMmaKeys * kMmaKeys;
   const int regions = (H / sh) * (W / sw);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
-  const bf16* qp = ws + ((size_t)g * heads + hh) * 3 * N1 * kDP;
-  const bf16* kp = qp + (size_t)N1 * kDP;
-  const bf16* vp = kp + (size_t)N1 * kDP;
+  const bf16* qp = ws + ((size_t)g * heads + hh) * 3 * N1 * DP;
+  const bf16* kp = qp + (size_t)N1 * DP;
+  const bf16* vp = kp + (size_t)N1 * DP;
   const float* b1 = bias1 + (size_t)hh * N2 * N1;
   const float* b2 = bias2 + (size_t)hh * N1 * N2;
   const int* bt = bands ? bands + (size_t)(g % regions) * N1 : nullptr;
@@ -308,10 +316,10 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
     bf16* ks = reinterpret_cast<bf16*>(stages + (it % kStages) * kResStage);
     bf16* vs = ks + kMmaKeys * kLdK;
     int* bks = reinterpret_cast<int*>(vs + kMmaKeys * kLdK);
-    for (int i = tid; i < kMmaKeys * (kDP / 8); i += kMmaThreads) {
-      const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+    for (int i = tid; i < kMmaKeys * (DP / 8); i += kMmaThreads) {
+      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
       const bool ok = c0 + r < N1;
-      const size_t off = (size_t)(ok ? c0 + r : 0) * kDP + c;
+      const size_t off = (size_t)(ok ? c0 + r : 0) * DP + c;
       cp_async16(ks + r * kLdK + c, kp + off, ok);
       if (pass) cp_async16(vs + r * kLdK + c, vp + off, ok);
     }
@@ -323,16 +331,25 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
   load(0);  // in flight while the anchors are normed
   cp_async_commit();
 
-  // the stripe's anchors, unit-normed and rounded (one warp a token, one
-  // lane a channel), zero rows past N2; x1 zeroed
+  // the stripe's anchors, unit-normed and rounded (one warp a token, lanes
+  // e and e + 32 channels e and e + 32), zero rows past N2; x1 zeroed
   const Regions areg{H / df, W / df, ah, aw, 0, 0};
   for (int a = warp; a < n2p; a += kMmaWarps) {
-    float v = 0.f;
-    if (a < N2 && lane < d)
-      v = __bfloat162float(anchor[(size_t)areg.pixel(g, a) * Cs + hh * d + lane]);
-    const float inv = rsqrtf(fmaxf(warp_sum(v * v), 1e-24f));
-    an[a * kLdK + lane] = __float2bfloat16(v * inv);
-    x1[a * kLdK + lane] = __float2bfloat16(0.f);
+    float v[DP / 32], ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < DP / 32; ++i) {
+      const int e = lane + 32 * i;
+      v[i] = a < N2 && e < d
+                 ? __bfloat162float(anchor[(size_t)areg.pixel(g, a) * Cs + hh * d + e])
+                 : 0.f;
+      ss = fmaf(v[i], v[i], ss);
+    }
+    const float inv = rsqrtf(fmaxf(warp_sum(ss), 1e-24f));
+#pragma unroll
+    for (int i = 0; i < DP / 32; ++i) {
+      an[a * kLdK + lane + 32 * i] = __float2bfloat16(v[i] * inv);
+      x1[a * kLdK + lane + 32 * i] = __float2bfloat16(0.f);
+    }
     if (lane == 0) ban[a] = bta && a < N2 ? bta[a] : 0;
   }
 
@@ -346,13 +363,13 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
     }
     const int row0 = rd * kMmaRows + warp * 16;
     const bool active = row0 < N2;
-    unsigned qa[2][4];
+    unsigned qa[DP / 16][4];
     int bq[2] = {0, 0};
     float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};
     float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
-    float o[4][4];
+    float o[DP / 8][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     for (int it = 0; it < total; ++it) {
@@ -364,7 +381,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
       if (active) {
         if (it == 0) {
 #pragma unroll
-          for (int kk = 0; kk < 2; ++kk)
+          for (int kk = 0; kk < DP / 16; ++kk)
             ldmatrix_x4(qa[kk], an + (row0 + (mi & 1) * 8 + lane % 8) * kLdK + kk * 16 +
                                     (mi >> 1) * 8);
           bq[0] = ban[row0 + gr];
@@ -392,7 +409,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
         const int row = row0 + gr + 8 * r;
         if (row >= N2) continue;
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
+        for (int n = 0; n < DP / 8; ++n)
           *reinterpret_cast<unsigned*>(x1 + row * kLdK + n * 8 + 2 * qd) =
               pack_bf16(o[n][2 * r] * inv_l[r], o[n][2 * r + 1] * inv_l[r]);
       }
@@ -405,24 +422,24 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
   const Regions reg{H, W, sh, sw, 0, 0};  // y in rolled coordinates
   const int nchb = n2p / kMmaKeys;
   for (int t0 = warp * 16; t0 < N1; t0 += kMmaWarps * 16) {
-    unsigned qa[2][4];
+    unsigned qa[DP / 16][4];
     int bq[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int t = t0 + gr + 8 * r;
       const bool ok = t < N1;
-      const bf16* qrow = qp + (size_t)(ok ? t : 0) * kDP + 2 * qd;
+      const bf16* qrow = qp + (size_t)(ok ? t : 0) * DP + 2 * qd;
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         qa[kk][r] = ok ? __ldg(reinterpret_cast<const unsigned*>(qrow + kk * 16)) : 0u;
         qa[kk][r + 2] = ok ? __ldg(reinterpret_cast<const unsigned*>(qrow + kk * 16 + 8)) : 0u;
       }
       bq[r] = bt && ok ? bt[t] : 0;
     }
     float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f}, mL[2], inv_l[2];
-    float o[4][4];
+    float o[DP / 8][4];
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
+    for (int n = 0; n < DP / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
     float s[8][4];
@@ -446,7 +463,7 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
       if (t >= N1) continue;
       bf16* out = y + (size_t)reg.pixel(g, t) * Cs + hh * d;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int n = 0; n < DP / 8; ++n) {
         const int e = n * 8 + 2 * qd;
         if (e < d) out[e] = __float2bfloat16(o[n][2 * r] * inv_l[r]);
         if (e + 1 < d) out[e + 1] = __float2bfloat16(o[n][2 * r + 1] * inv_l[r]);
@@ -455,16 +472,17 @@ mma_stripe_resident_kernel(const bf16* __restrict__ ws, const bf16* __restrict__
   }
 }
 
-// The bf16 route: the projection, then mma_stripe_resident_kernel.
-// Returns 0, -1 (d > 32 or shared memory) or a cudaError_t.
-int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, const float* bp,
-                           const float* s1, const float* s2, const float* b1, const float* b2,
-                           const int* bands, const int* bands_a, void* ws, void* y, int B, int H,
-                           int W, int C, int Cs, int heads, int sh, int sw, int df, int shift_h,
-                           int shift_w, int Cp, cudaStream_t stream) {
-  if (Cs / heads > kDP) return -1;
-  const size_t smem = resident_smem((sh / df) * (sw / df));
-  int err = set_smem(mma_stripe_resident_kernel, smem);
+// The bf16 route: the projection, then mma_stripe_resident_kernel<DP>.
+// Returns 0, -1 (shared memory) or a cudaError_t.
+template <int DP>
+int launch_stripe_half_mma_cols(const void* x, const void* anchor, const void* wt,
+                                const float* bp, const float* s1, const float* s2,
+                                const float* b1, const float* b2, const int* bands,
+                                const int* bands_a, void* ws, void* y, int B, int H, int W, int C,
+                                int Cs, int heads, int sh, int sw, int df, int shift_h,
+                                int shift_w, int Cp, cudaStream_t stream) {
+  const size_t smem = resident_smem<DP>((sh / df) * (sw / df));
+  int err = set_smem(mma_stripe_resident_kernel<DP>, smem);
   if (err) return err;
   // q (unit-normed, times s2), k (unit-normed, times s1), v
   const Regions reg{H, W, sh, sw, shift_h, shift_w};
@@ -474,10 +492,27 @@ int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, co
   const int groups = B * (H / sh) * (W / sw);
   const long long blocks = (long long)groups * heads;
   if (blocks > 0x7fffffffLL) return -1;
-  mma_stripe_resident_kernel<<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
+  mma_stripe_resident_kernel<DP><<<static_cast<unsigned>(blocks), kMmaThreads, smem, stream>>>(
       static_cast<const bf16*>(ws), static_cast<const bf16*>(anchor), b1, b2, bands, bands_a,
       static_cast<bf16*>(y), H, W, Cs, heads, sh, sw, df, groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 route in rows of head_cols(d); -1 as well for d > 64.
+int launch_stripe_half_mma(const void* x, const void* anchor, const void* wt, const float* bp,
+                           const float* s1, const float* s2, const float* b1, const float* b2,
+                           const int* bands, const int* bands_a, void* ws, void* y, int B, int H,
+                           int W, int C, int Cs, int heads, int sh, int sw, int df, int shift_h,
+                           int shift_w, int Cp, cudaStream_t stream) {
+  const int d = Cs / heads;
+  if (d > kMaxD) return -1;
+  if (d <= 32)
+    return launch_stripe_half_mma_cols<32>(x, anchor, wt, bp, s1, s2, b1, b2, bands, bands_a, ws,
+                                           y, B, H, W, C, Cs, heads, sh, sw, df, shift_h,
+                                           shift_w, Cp, stream);
+  return launch_stripe_half_mma_cols<64>(x, anchor, wt, bp, s1, s2, b1, b2, bands, bands_a, ws,
+                                         y, B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w,
+                                         Cp, stream);
 }
 
 }  // namespace
@@ -505,8 +540,8 @@ extern "C" int grlir_stripe_half(const void* x, const void* anchor, const void* 
 // bf16 on tensor cores.  x, anchor and y as for the fp32 entry in bf16; s1,
 // s2, b1, b2 as for the fp32 entry; wt (3Cs, Cp) bf16: w transposed, rows
 // Cp apart (C rounded up to 16; values past C are not read); bp (3Cs,)
-// fp32; ws: B * stripes * heads * 3 * N1 * 32 bf16.  Returns -1 as well
-// for d > 32.
+// fp32; ws: B * stripes * heads * 3 * N1 * DP bf16 (DP = 32 for d <= 32,
+// else 64).  Returns -1 as well for d > 64.
 extern "C" int grlir_stripe_half_mma(const void* x, const void* anchor, const void* wt,
                                      const float* bp, const float* s1, const float* s2,
                                      const float* b1, const float* b2, const int* bands,

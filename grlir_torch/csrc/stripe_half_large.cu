@@ -30,8 +30,9 @@
 // it comes from HBM about once a step and from L2 for the others: 25.2 MB a
 // step at GRL-base x4 SR 256^2 (3 x 1024 x 4096 bf16 each way) and 100.7 MB
 // at its 2 x 256^2 denoising tile, against 16 readers each.  Workspace rows
-// are zero-padded to 32 so that every attention load is a 16-byte cp.async:
-// the projection and the anchors write rows of 32, and the w2a step pads x1.
+// are zero-padded to 32 (64 for d > 32) so that every attention load is a
+// 16-byte cp.async: the projection and the anchors write rows of that
+// width, and the w2a step pads x1.
 // On an H100 80GB HBM3 (700 W power limit) a step at GRL-base x4 SR 256^2
 // takes 0.52 ms of device time, 0.44 ms of it the attention kernel, which
 // one chunk in flight a block and 16 warps an SM (128 registers) leave
@@ -121,7 +122,7 @@ int a2w_fp32(const void* x, const void* anchor, const void* w, const float* bqkv
              const float* s1, const void* bias, const int* bands, const int* bands_a,
              void* ws_an, void* ws_kv, void* x1, const StripeGeom& G, cudaStream_t stream) {
   const int d = G.d();
-  if (d > kDP) return -1;
+  if (d > kMaxD) return -1;
   int err = anchor_units(anchor, ws_an, d, false, G, stream);
   if (err) return err;
   // k (unit-normed) and v of every stripe: parts 1 and 2 of the projection
@@ -138,7 +139,7 @@ int w2a_fp32(const void* x, const void* anchor, const void* x1, const void* w,
              const int* bands_a, void* ws_an, void* ws_q, void* y, const StripeGeom& G,
              cudaStream_t stream) {
   const int d = G.d();
-  if (d > kDP) return -1;
+  if (d > kMaxD) return -1;
   int err = anchor_units(anchor, ws_an, d, false, G, stream);
   if (err) return err;
   // q (unit-normed) of every stripe: part 0 of the projection
@@ -153,15 +154,16 @@ int a2w_mma(const void* x, const void* anchor, const void* wt, const float* bp,
             const float* s1, const void* bias, const int* bands, const int* bands_a,
             void* ws_an, void* ws_kv, void* x1, int Cp, const StripeGeom& G,
             cudaStream_t stream) {
-  if (G.d() > kDP) return -1;
-  int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
+  if (G.d() > kMaxD) return -1;
+  const int dp = head_cols(G.d());
+  int err = anchor_units(anchor, ws_an, dp, true, G, stream);
   if (err) return err;
   // k (unit-normed) and v of every stripe: wt holds the k and v parts
   err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_kv, G.regions(), G.B, G.C, Cp,
                            G.heads, G.d(), 2, 0b01, stream);
   if (err) return err;
   const AttnArgs a =
-      a2w_args(ws_an, ws_kv, sizeof(bf16), kDP, s1, bias, bands, bands_a, x1, G);
+      a2w_args(ws_an, ws_kv, sizeof(bf16), dp, s1, bias, bands, bands_a, x1, G);
   return launch_mma_attend<false>(a, G.B * a.regions, stream);
 }
 
@@ -170,8 +172,9 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
             const int* bands_a, void* ws_an, void* ws_q, void* ws_x1, void* y, int Cp,
             const StripeGeom& G, cudaStream_t stream) {
   const int d = G.d();
-  if (d > kDP) return -1;
-  int err = anchor_units(anchor, ws_an, kDP, true, G, stream);
+  if (d > kMaxD) return -1;
+  const int dp = head_cols(d);
+  int err = anchor_units(anchor, ws_an, dp, true, G, stream);
   if (err) return err;
   // q (unit-normed) of every stripe: wt holds the q part
   err = launch_mma_project(x, wt, bp, nullptr, nullptr, ws_q, G.regions(), G.B, G.C, Cp,
@@ -179,7 +182,7 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
   if (err) return err;
   err = launch_pad_rows(x1, ws_x1, (long long)G.B * G.stripes() * G.heads * G.N2(), d, stream);
   if (err) return err;
-  const AttnArgs a = w2a_args(ws_q, ws_an, ws_x1, kDP, s2, bias, bands, bands_a, y, G);
+  const AttnArgs a = w2a_args(ws_q, ws_an, ws_x1, dp, s2, bias, bands, bands_a, y, G);
   return launch_mma_attend<false>(a, G.B * a.regions, stream);
 }
 
@@ -191,7 +194,7 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
 // all fp32; bands (stripes, N1) and bands_a (stripes, N2) int32, or both
 // null; ws_an: B * stripes * heads * N2 * d and ws_kv: B * stripes * heads *
 // 2 * N1 * d floats; x1 (B, stripes, heads, N2, d) out.  Returns 0, -1
-// (d > 32 or shared memory) or a cudaError_t.
+// (d > 64 or shared memory) or a cudaError_t.
 extern "C" int grlir_stripe_a2w_large(const void* x, const void* anchor, const void* w,
                                       const float* bqkv, const float* s1, const void* bias,
                                       const int* bands, const int* bands_a, void* ws_an,
@@ -221,7 +224,8 @@ extern "C" int grlir_stripe_w2a_large(const void* x, const void* anchor, const v
 // entry in bf16; wt (2Cs, Cp) bf16: the k and v columns of w, transposed,
 // rows Cp apart (C rounded up to 16; values past C are not read); bp (2Cs,)
 // fp32: the k and v values of bqkv; s1 fp32; ws_an: B * stripes * heads *
-// N2 * 32 and ws_kv: B * stripes * heads * 2 * N1 * 32 bf16.
+// N2 * DP and ws_kv: B * stripes * heads * 2 * N1 * DP bf16 (DP = 32 for
+// d <= 32, else 64).
 extern "C" int grlir_stripe_a2w_large_mma(const void* x, const void* anchor, const void* wt,
                                           const float* bp, const float* s1, const void* bias,
                                           const int* bands, const int* bands_a, void* ws_an,
@@ -234,9 +238,9 @@ extern "C" int grlir_stripe_a2w_large_mma(const void* x, const void* anchor, con
 }
 
 // w2a step, bf16 on tensor cores.  wt (Cs, Cp) and bp (Cs,): the q
-// columns, laid out as for the a2w entry; ws_q: B * stripes * heads * N1 * 32
-// and ws_x1: B * stripes * heads * N2 * 32 bf16; the rest as for the fp32
-// w2a entry in bf16.
+// columns, laid out as for the a2w entry; ws_q: B * stripes * heads * N1 *
+// DP and ws_x1: B * stripes * heads * N2 * DP bf16 (DP as for the a2w
+// entry); the rest as for the fp32 w2a entry in bf16.
 extern "C" int grlir_stripe_w2a_large_mma(const void* x, const void* anchor, const void* x1,
                                           const void* wt, const float* bp, const float* s2,
                                           const void* bias, const int* bands, const int* bands_a,

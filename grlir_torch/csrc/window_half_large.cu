@@ -27,8 +27,8 @@
 // pipeline (stripe_attn_mma.cuh) with B3's rounding: mma.sync m16n8k16
 // with bf16 operands and fp32 sums; the projection folds the logit scale
 // into q after the unit norm and before the bf16 rounding, as the TPU does
-// (:272, :280), into workspace rows padded to 32 (zeros past d, so that d =
-// 30 keeps 16-byte copies); the
+// (:272, :280), into workspace rows padded to 32 or 64 (zeros past d, so
+// that d = 30 keeps 16-byte copies); the
 // attention runs kDeferred, 64 query rows a block with the window the
 // grid's fastest index, so each bias tile comes from HBM about once and
 // from L2 for the other B x 64 windows.
@@ -71,7 +71,7 @@ int window_half_large_fp32(const void* x, const void* w, const float* bqkv, cons
                            int W, int C, int Cw, int heads, int wh, int ww, int shift,
                            cudaStream_t stream) {
   const int d = Cw / heads;
-  if (d > kDP) return -1;
+  if (d > kMaxD) return -1;
   const Regions reg{H, W, wh, ww, shift, shift};
   // q (unit-normed, times the scale), k (unit-normed), v
   int err = launch_project<float>(x, w, bqkv, scale, ws, reg, B, C, Cw, heads, 0, 3, 0b011, stream);
@@ -85,13 +85,14 @@ int window_half_large_mma(const void* x, const void* wt, const float* bp, const 
                           int W, int C, int Cw, int heads, int wh, int ww, int shift, int Cp,
                           cudaStream_t stream) {
   const int d = Cw / heads;
-  if (d > kDP) return -1;
+  if (d > kMaxD) return -1;
   const Regions reg{H, W, wh, ww, shift, shift};
-  // q (unit-normed, times the scale), k (unit-normed), v, in rows of 32
+  // q (unit-normed, times the scale), k (unit-normed), v, in rows of 32 or 64
   int err =
       launch_mma_project(x, wt, bp, scale, nullptr, ws, reg, B, C, Cp, heads, d, 3, 0b011, stream);
   if (err) return err;
-  const AttnArgs a = window_args(ws, sizeof(bf16), kDP, bias, bands, y, H, W, d, heads, wh, ww);
+  const AttnArgs a =
+      window_args(ws, sizeof(bf16), head_cols(d), bias, bands, y, H, W, d, heads, wh, ww);
   return launch_mma_attend<true>(a, B * a.regions, stream);
 }
 
@@ -102,7 +103,7 @@ int window_half_large_mma(const void* x, const void* wt, const float* bp, const 
 // exp(min(logit_scale, log 100)); all fp32; bias (heads, N, N) bf16; bands
 // (windows, N) int32 or null; ws: B * windows * heads * 3 * N * d floats;
 // y (B, H, W, Cw).  Returns 0 on success, -1 when the geometry is beyond
-// the kernels (d > 32 or shared memory), or the cudaError_t of a failed
+// the kernels (d > 64 or shared memory), or the cudaError_t of a failed
 // launch.
 extern "C" int grlir_window_half_large(const void* x, const void* w, const float* bqkv,
                                        const float* scale, const void* bias, const int* bands,
@@ -115,7 +116,7 @@ extern "C" int grlir_window_half_large(const void* x, const void* w, const float
 // bf16 on tensor cores.  x, bias and y as for the fp32 entry in bf16; wt
 // (3Cw, Cp) bf16: w transposed, rows Cp apart (C rounded up to 16; values
 // past C are not read); bp (3Cw,) fp32; scale as for the fp32 entry; ws:
-// B * windows * heads * 3 * N * 32 bf16.
+// B * windows * heads * 3 * N * DP bf16 (DP = 32 for d <= 32, else 64).
 extern "C" int grlir_window_half_large_mma(const void* x, const void* wt, const float* bp,
                                            const float* scale, const void* bias,
                                            const int* bands, void* ws, void* y, int B, int H,

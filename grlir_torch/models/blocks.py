@@ -18,19 +18,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from grlir_torch.ops import attention as fused_attention
 from grlir_torch.ops import block_attn
-from grlir_torch.ops import flash_attention as flash
 from grlir_torch.ops.attention import (
     fused_cosine_attention_auto,
     fused_window_attention_qkv,
 )
 from grlir_torch.ops.block_attn import (
     stripe_half,
-    stripe_kernel_takes,
     stripe_route,
     window_half,
-    window_kernel_takes,
     window_route,
 )
 from grlir_torch.ops.flash_attention import flash_rect_attention
@@ -49,16 +45,6 @@ _FLASH_MIN_TOKENS = 256
 # choice (grlir/models/blocks.py:1084-1090)
 ENGINE_HALVES = {"v3": ("v3", "v3"), "fused": ("fused", "fused"),
                  "window": ("fused", "plain"), "stripe": ("plain", "fused")}
-
-
-def _takes(kernel_takes: bool) -> bool:
-    """Whether the port's kernel takes a half that a TPU kernel takes; if
-    not, the half is counted in `block_attn.wide_halves` and runs that
-    kernel's plain version (its wrapper with kernels=False), the JAX
-    package's numerics there."""
-    if not kernel_takes:
-        block_attn.wide_halves += 1
-    return kernel_takes
 
 
 def linear(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -194,8 +180,7 @@ class WindowAttention(nn.Module):
     the block-half kernels where a TPU route takes the geometry and the
     plain path where none does (grlir/models/blocks.py:557-562); "fused"
     runs B6, or B5 above _FLASH_MIN_TOKENS tokens; "plain" runs
-    cosine_attention.  A half whose head dim the route's kernel does not
-    take runs that kernel's plain version (`block_attn.wide_halves`)."""
+    cosine_attention."""
 
     def __init__(self, window: int, heads: int, shift: bool, mode: str = "v3",
                  device=None):
@@ -212,13 +197,11 @@ class WindowAttention(nn.Module):
         h, shift = self.heads, self.shift
         table, index = tim["table_w"], tim["index_w"]
         bands = tim["bands_w"] if shift else None
-        d = wqkv.shape[1] // (3 * h)
         if self.mode == "v3":
-            route = window_route((H, W), self.window, h)
-            if route is not None:
-                k = kernels and _takes(window_kernel_takes(route, d))
+            if window_route((H, W), self.window, h) is not None:
                 y = window_half(x, wqkv, bqkv, t.logit_scale, t.bias(table, index),
-                                self.window, bands=bands, shift=shift, kernels=k)
+                                self.window, bands=bands, shift=shift,
+                                kernels=kernels)
                 return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
             block_attn.unrouted_halves += 1
         if shift:
@@ -229,12 +212,11 @@ class WindowAttention(nn.Module):
             q, k, v = _qkv_cm_heads(xw, wqkv, bqkv, dt, h)
             y = flash_rect_attention(q, k, v, t.logit_scale,
                                      t.bias(table, index, q.dtype), bands, bands,
-                                     kernels and _takes(d <= flash.MAX_D))
+                                     kernels)
         elif self.mode == "fused":
-            kern = kernels and _takes(d <= fused_attention.MAX_D)
             y = fused_window_attention_qkv(_qkv_cm(xw, wqkv, bqkv, dt),
                                            t.logit_scale, t.bias(table, index),
-                                           h, bands, kern)
+                                           h, bands, kernels)
         else:
             q, k, v = _qkv_cm_heads(xw, wqkv, bqkv, dt, h)
             mask = _inflate_mask(bands, bands, dt) if shift else None
@@ -273,9 +255,7 @@ class AnchorStripeAttention(nn.Module):
     down-sampled anchor (a2w, then w2a).  mode as in WindowAttention: "v3"
     the block-half kernels where a TPU route takes the geometry, else the
     plain path; "fused" B5 twice above _FLASH_MIN_TOKENS tokens, else B7
-    twice; "plain" cosine_attention twice.  A half whose head dim the
-    route's kernel does not take runs that kernel's plain version
-    (`block_attn.wide_halves`)."""
+    twice; "plain" cosine_attention twice."""
 
     def __init__(self, stripe_size, stripe_groups, shift: bool, heads: int,
                  df: int, mode: str = "v3", device=None):
@@ -306,14 +286,11 @@ class AnchorStripeAttention(nn.Module):
         t1, t2 = self.attn_transform1, self.attn_transform2
         table, i1, i2 = tim["table_s"], tim["index_a2w"], tim["index_w2a"]
         if self.mode == "v3":
-            route = stripe_route((H, W), stripe, df, h)
-            if route is not None:
-                d = wqkv.shape[1] // (3 * h)
-                k = kernels and _takes(stripe_kernel_takes(route, d, x.dtype))
+            if stripe_route((H, W), stripe, df, h) is not None:
                 y = stripe_half(
                     x, anchor, wqkv, bqkv, t1.logit_scale, t2.logit_scale,
                     t1.bias(table, i1), t2.bias(table, i2), stripe, df,
-                    bands=bands, bands_a=bands_a, shift=shift, kernels=k)
+                    bands=bands, bands_a=bands_a, shift=shift, kernels=kernels)
                 return torch.roll(y, shift, dims=(1, 2)) if self.shift else y
             block_attn.unrouted_halves += 1
         if self.shift:
@@ -323,17 +300,14 @@ class AnchorStripeAttention(nn.Module):
         a = window_partition_cm(anchor, (stripe[0] // df, stripe[1] // df))
         a = a.reshape(B, nW, h, d, -1)                        # (B, nW, h, d, N2)
         if self.mode == "fused" and max(N1, a.shape[-1]) > _FLASH_MIN_TOKENS:
-            kern = kernels and _takes(d <= flash.MAX_D)
             y = flash_rect_attention(a, k, v, t1.logit_scale,
                                      t1.bias(table, i1, k.dtype), bands_a, bands,
-                                     kern)
+                                     kernels)
             y = flash_rect_attention(q, a, y, t2.logit_scale,
                                      t2.bias(table, i2, q.dtype), bands, bands_a,
-                                     kern)
+                                     kernels)
         else:
             fused = self.mode == "fused"
-            if fused:
-                kernels = kernels and _takes(d <= fused_attention.MAX_D)
             m1 = m2 = None
             if self.shift:
                 m1 = _inflate_mask(bands_a, bands, dt)

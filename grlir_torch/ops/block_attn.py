@@ -21,10 +21,11 @@ raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
 version on any device.  A geometry that no TPU kernel takes raises
 NotImplementedError either way: the model routes such a half to its plain
 cosine attention (`grlir_torch.models.blocks`) before it gets here, and
-counts it in `unrouted_halves`; so does a head dim beyond the kernel's
-tiles (`window_kernel_takes`, `stripe_kernel_takes`), counted in
-`wide_halves`.  Under grad the kernels run forward and their backward is
-autograd of the plain version on the same inputs (`_PlainGrad`), as the JAX
+counts it in `unrouted_halves`.  The kernels take head dims up to `MAX_D`
+(their rows are padded to 32 or 64 columns; B1's and B2's fp32 routes up to
+where a block's shared memory ends); a CUDA tensor with a wider head
+raises.  Under grad the kernels run forward and their backward is autograd
+of the plain version on the same inputs (`_PlainGrad`), as the JAX
 package's custom VJPs recompute their XLA twins
 (grlir/ops/pallas/block_attn.py:553-586).
 
@@ -223,13 +224,11 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
-              bias_dtype=torch.float32, parts: Optional[Tuple[int, int]] = None,
-              keep_w: bool = False):
-    """Contiguous kernel operands on x's device: w in x's type, fp32 bias
-    vector and scales, position biases in bias_dtype, int32 band ids.  With
-    parts = (p0, n), for the tensor-core routes of B2-B4: w is `_pack_w` of
-    parts p0..p0+n and the bias vector those parts' values.  keep_w: w as
-    it is (B1's tensor-core route reads it through its strides)."""
+              bias_dtype=torch.float32, parts: Optional[Tuple[int, int]] = None):
+    """Contiguous kernel operands on x's device but w (`_kernel_w`): x,
+    the fp32 bias vector and scales, position biases in bias_dtype, int32
+    band ids.  With parts = (p0, n), for the tensor-core routes of B2-B4:
+    the bias vector holds the values of parts p0..p0+n."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     C3 = wqkv.shape[1]
@@ -240,22 +239,20 @@ def _operands(x, wqkv, bqkv, logit_scales, biases, bands,
     for t in (wqkv, b, *logit_scales, *biases, *bands):
         if t is not None and t.device != x.device:
             raise ValueError(f"operand on {t.device}, x on {x.device}")
-    if keep_w:
-        if wqkv.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(
-                f"wqkv must be float32 or bfloat16, got {wqkv.dtype}")
-        w = wqkv
-    elif parts is None:
-        w = wqkv.to(x.dtype).contiguous()
-    else:
+    if parts is not None:
         p0, n = parts
-        w = _pack_w(wqkv, p0, n)
         b = b[p0 * C3 // 3:(p0 + n) * C3 // 3]
-    return (x.contiguous(), w, b,
+    return (x.contiguous(), b,
             [_scale(s).contiguous() for s in logit_scales],
             [t.to(bias_dtype).contiguous() for t in biases],
             [None if t is None else t.to(torch.int32).contiguous()
              for t in bands])
+
+
+def _kernel_w(wqkv, x, parts: Optional[Tuple[int, int]] = None):
+    """w as a CUDA-core kernel reads it (x's type, contiguous) or, with
+    parts, as a tensor-core projection of B2-B4 reads it (`_pack_w`)."""
+    return wqkv.to(x.dtype).contiguous() if parts is None else _pack_w(wqkv, *parts)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -346,21 +343,24 @@ def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     wh, ww = window
     d = Cw // h
     tc = x.dtype == torch.bfloat16
-    if tc:
-        _check_d("window_half", d, _SMALL_MAX_D)
-    # the tensor-core kernel reads w where the model keeps it (fp32 or bf16,
-    # any strides) and rounds it to bf16 in shared memory
-    x, w, b, (s,), (bias,), (bands,) = _operands(
-        x, wqkv, bqkv, [logit_scale], [bias], [bands], keep_w=tc)
+    x, b, (s,), (bias,), (bands,) = _operands(
+        x, wqkv, bqkv, [logit_scale], [bias], [bands])
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
     lib = cuda_build.library()
     if tc:
+        _check_d("window_half", d)
+        # the tensor-core kernel reads w where the model keeps it (fp32 or
+        # bf16, any strides) and rounds it to bf16 in shared memory
+        w = wqkv
+        if w.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"wqkv must be float32 or bfloat16, got {w.dtype}")
         err = lib.grlir_window_half_mma(
             _ptr(x), _ptr(w), w.stride(0), w.stride(1),
             int(w.dtype == torch.bfloat16), _ptr(b), _ptr(s), _ptr(bias),
             _ptr(bands), _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift),
             _stream(x))
     else:
+        w = _kernel_w(wqkv, x)
         err = lib.grlir_window_half(
             _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
             _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift), _stream(x))
@@ -372,31 +372,21 @@ def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
 window_half.launches = 0
 window_half.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
-# head dims the kernels take: B1 up to 64 on both routes; B2's bf16 route,
-# B3 and B4 up to 32 (their tiles and workspace rows hold 32 columns)
-_SMALL_MAX_D = 64
-_LARGE_MAX_D = 32
+# head dims the kernels take (B1-B4's tensor-core routes, B3's and B4's
+# CUDA-core routes, and B5, which runs B4's attention kernel): their rows
+# are padded to 32 columns, or to 64 above 32 (`_head_cols`)
+MAX_D = 64
 
 
-def _check_d(name: str, d: int, max_d: int = _LARGE_MAX_D) -> None:
-    if d > max_d:
+def _check_d(name: str, d: int) -> None:
+    if d > MAX_D:
         raise NotImplementedError(
-            f"{name}: head dim {d} > {max_d} is beyond the kernel's tiles")
+            f"{name}: head dim {d} > {MAX_D} is beyond the kernel's tiles")
 
 
-def window_kernel_takes(route: str, d: int) -> bool:
-    """Whether the window kernel of `route` ("small" B1, "large" B3) takes
-    head dim d."""
-    return d <= (_SMALL_MAX_D if route == "small" else _LARGE_MAX_D)
-
-
-def stripe_kernel_takes(route: str, d: int, dtype: torch.dtype) -> bool:
-    """Whether the stripe kernel of `route` ("resident" B2, "large" B4)
-    takes head dim d for inputs of dtype: B2's CUDA-core route (fp32) up to
-    64, its tensor-core route and B4 up to 32."""
-    if route == "resident" and dtype != torch.bfloat16:
-        return d <= _SMALL_MAX_D
-    return d <= _LARGE_MAX_D
+def _head_cols(d: int) -> int:
+    """Columns of a tensor-core workspace row of head dim d (zeros past d)."""
+    return 32 if d <= 32 else 64
 
 
 def window_half_large(x, wqkv, bqkv, logit_scale, bias, window: Size2,
@@ -420,17 +410,19 @@ def _window_half_large_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
     N, d = wh * ww, Cw // h
     _check_d("window_half_large", d)
     tc = x.dtype == torch.bfloat16
-    x, w, b, (s,), (bias,), (bands,) = _operands(
+    parts = (0, 3) if tc else None
+    w = _kernel_w(wqkv, x, parts)
+    x, b, (s,), (bias,), (bands,) = _operands(
         x, wqkv, bqkv, [logit_scale], [bias], [bands],
-        bias_dtype=torch.bfloat16, parts=(0, 3) if tc else None)
+        bias_dtype=torch.bfloat16, parts=parts)
     nW = (H // wh) * (W // ww)
     y = torch.empty((B, H, W, Cw), dtype=x.dtype, device=x.device)
     geom = (B, H, W, C, Cw, h, wh, ww, int(shift))
     lib = cuda_build.library()
     # q (unit-normed, times the scale), k (unit-normed) and v of every
-    # window and head, rounded to x's type: in rows of 32 for bf16
+    # window and head, rounded to x's type: in rows of 32 or 64 for bf16
     if tc:
-        ws = torch.empty((B * nW, h, 3, N, _LARGE_MAX_D), dtype=x.dtype,
+        ws = torch.empty((B * nW, h, 3, N, _head_cols(d)), dtype=x.dtype,
                          device=x.device)
         err = lib.grlir_window_half_large_mma(
             _ptr(x), _ptr(w), _ptr(b), _ptr(s), _ptr(bias), _ptr(bands),
@@ -639,20 +631,22 @@ def _stripe_half_kernel(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
         "stripe_half", x, anchor, wqkv, logit_scale1, stripe, df, bands,
         bands_a, bias_a2w, bias_w2a)
     tc = x.dtype == torch.bfloat16
-    if tc:   # the tensor-core route's workspace rows hold 32 columns
+    if tc:   # the tensor-core route's workspace rows hold 32 or 64 columns
         _check_d("stripe_half", Cs // h)
-    x, w, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
+    parts = (0, 3) if tc else None
+    w = _kernel_w(wqkv, x, parts)
+    x, b, (s1, s2), (b1, b2), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1, logit_scale2], [bias_a2w, bias_w2a],
-        [bands, bands_a], parts=(0, 3) if tc else None)
+        [bands, bands_a], parts=parts)
     anchor = anchor.to(x.dtype).contiguous()
     y = torch.empty((B, H, W, Cs), dtype=x.dtype, device=x.device)
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     lib = cuda_build.library()
     if tc:
         # q (unit-normed, times s2), k (unit-normed, times s1) and v of
-        # every stripe, in rows of 32
-        ws = torch.empty((B * nW, h, 3, N1, _LARGE_MAX_D), dtype=x.dtype,
-                         device=x.device)
+        # every stripe, in rows of 32 or 64
+        ws = torch.empty((B * nW, h, 3, N1, _head_cols(Cs // h)),
+                         dtype=x.dtype, device=x.device)
         err = lib.grlir_stripe_half_mma(
             _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(s2),
             _ptr(b1), _ptr(b2), _ptr(bands), _ptr(bands_a), _ptr(ws), _ptr(y),
@@ -720,19 +714,21 @@ def _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
     d = Cs // h
     _check_d("stripe_a2w_large", d)
     tc = x.dtype == torch.bfloat16
-    x, w, b, (s1,), (b1,), (bands, bands_a) = _operands(
+    parts = (1, 2) if tc else None
+    w = _kernel_w(wqkv, x, parts)
+    x, b, (s1,), (b1,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale1], [bias_a2w], [bands, bands_a],
-        bias_dtype=x.dtype, parts=(1, 2) if tc else None)
+        bias_dtype=x.dtype, parts=parts)
     anchor = anchor.to(x.dtype).contiguous()
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
     x1 = torch.empty((B, nW, h, N2, d), dtype=x.dtype, device=x.device)
     lib = cuda_build.library()
     if tc:
         # unit-normed anchors, then k (unit-normed) and v of every stripe,
-        # in rows of 32
-        ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
-                            device=x.device)
-        ws_kv = torch.empty((B * nW, h, 2, N1, _LARGE_MAX_D), dtype=x.dtype,
+        # in rows of 32 or 64
+        dp = _head_cols(d)
+        ws_an = torch.empty((B * nW, h, N2, dp), dtype=x.dtype, device=x.device)
+        ws_kv = torch.empty((B * nW, h, 2, N1, dp), dtype=x.dtype,
                             device=x.device)
         err = lib.grlir_stripe_a2w_large_mma(
             _ptr(x), _ptr(anchor), _ptr(w), _ptr(b), _ptr(s1), _ptr(b1),
@@ -780,9 +776,11 @@ def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
     d = Cs // h
     _check_d("stripe_w2a_large", d)
     tc = x.dtype == torch.bfloat16
-    x, w, b, (s2,), (b2,), (bands, bands_a) = _operands(
+    parts = (0, 1) if tc else None
+    w = _kernel_w(wqkv, x, parts)
+    x, b, (s2,), (b2,), (bands, bands_a) = _operands(
         x, wqkv, bqkv, [logit_scale2], [bias_w2a], [bands, bands_a],
-        bias_dtype=x.dtype, parts=(0, 1) if tc else None)
+        bias_dtype=x.dtype, parts=parts)
     anchor = anchor.to(x.dtype).contiguous()
     x1 = x1.to(x.dtype).contiguous()
     geom = (B, H, W, C, Cs, h, sh, sw, df, int(shift[0]), int(shift[1]))
@@ -790,10 +788,10 @@ def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
     lib = cuda_build.library()
     if tc:
         # unit-normed anchors, unit-normed q of every stripe and x1, in rows
-        # of 32
-        ws_an = torch.empty((B * nW, h, N2, _LARGE_MAX_D), dtype=x.dtype,
-                            device=x.device)
-        ws_q = torch.empty((B * nW, h, 1, N1, _LARGE_MAX_D), dtype=x.dtype,
+        # of 32 or 64
+        dp = _head_cols(d)
+        ws_an = torch.empty((B * nW, h, N2, dp), dtype=x.dtype, device=x.device)
+        ws_q = torch.empty((B * nW, h, 1, N1, dp), dtype=x.dtype,
                            device=x.device)
         ws_x1 = torch.empty_like(ws_an)
         err = lib.grlir_stripe_w2a_large_mma(
@@ -823,10 +821,6 @@ KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
 # None) and that the model ran on its plain cosine attention instead, as
 # the JAX package runs its XLA path there (grlir/models/blocks.py:557-562)
 unrouted_halves = 0
-# block halves that a TPU kernel takes but whose head dim the port's kernel
-# does not (B2's bf16 route, B3, B4, B5 above 32; any above 64), which the
-# model ran on its plain cosine attention
-wide_halves = 0
 
 
 # the kernels with a tensor-core and a CUDA-core route
@@ -835,13 +829,12 @@ ROUTED = (window_half, window_half_large, stripe_half, stripe_a2w_large,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, the counts by route of B1-B4,
-    unrouted_halves and wide_halves to 0."""
-    global unrouted_halves, wide_halves
+    """Set every kernel's launch count, the counts by route of B1-B4 and
+    unrouted_halves to 0."""
+    global unrouted_halves
     for k in KERNELS:
         k.launches = 0
     for k in ROUTED:
         for route in k.route_launches:
             k.route_launches[route] = 0
     unrouted_halves = 0
-    wide_halves = 0

@@ -26,7 +26,7 @@ import torch
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.block_attn import (
-    _LARGE_MAX_D,
+    MAX_D,
     _band_mask,
     _check_inference,
     _ptr,
@@ -34,10 +34,6 @@ from grlir_torch.ops.block_attn import (
     _stream,
     _unit,
 )
-
-
-# head dims the kernel takes (its tiles hold 32 columns)
-MAX_D = _LARGE_MAX_D
 
 
 def _bias_dtype(x: torch.Tensor) -> torch.dtype:

@@ -15,7 +15,8 @@ geometry (window 32, stripes 64x64 and 64x128, df 2), B3 and B4 also at
 GRL-base's width (C = 180), B4 on the ragged V stripes of the 1080p repair
 and on an odd geometry, B2 at GRL-S's and GRL-base's widths in both stripe
 directions and at C = 90 (x rows not 8-byte aligned); B2, B3 and B4 count
-each launch on its route (bf16 on tensor cores, fp32 on CUDA cores).  The fused engines' kernels run at GRL-S's and GRL-base's
+each launch on its route (bf16 on tensor cores, fp32 on CUDA cores); B1-B5
+also at head dims up to 64.  The fused engines' kernels run at GRL-S's and GRL-base's
 shapes and at ragged ones: B5 (`flash_rect_attention`), B6
 (`fused_window_attention_qkv`), B7a (`fused_cosine_attention`, token-major
 and d-major operands) and B7b (`fused_cosine_attention_packed`, the same
@@ -334,7 +335,7 @@ def test_stripe_large_kernels_odd_geometry(cuda, dtype):
 @pytest.mark.cuda
 def test_kernels_refuse_large_geometries(cuda):
     """Geometries that no TPU kernel takes, or whose head dim is beyond the
-    large kernels' 32 columns, raise; nothing falls back."""
+    kernels' 64 columns, raise; nothing falls back."""
     rng = np.random.default_rng(5)
     w, b, ls, _ = _weights(rng, cuda)
     x = torch.zeros((1, 256, 256, C), device=cuda)
@@ -347,8 +348,8 @@ def test_kernels_refuse_large_geometries(cuda):
     assert tba.stripe_route((256, 256), (256, 256), 2, HEADS) is None
     with torch.no_grad(), pytest.raises(NotImplementedError, match="no TPU stripe"):
         tba.stripe_half(x, anchor, w, b, ls, ls, dummy, dummy, (256, 256), 2)
-    # one head of d = 64 is beyond the large kernels' 32 columns
-    w1 = torch.zeros((C, 3 * 64), device=cuda)
+    # one head of d = 96 is beyond the large-window kernel's 64 columns
+    w1 = torch.zeros((C, 3 * 96), device=cuda)
     ls1 = torch.zeros((1, 1, 1), device=cuda)
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
         tba.window_half(x[:, :64, :64], w1, None, ls1,
@@ -358,7 +359,7 @@ def test_kernels_refuse_large_geometries(cuda):
     assert tba.stripe_route((64, 64), (64, 8), 4, 1) == "resident"
     with torch.no_grad(), pytest.raises(NotImplementedError, match="head dim"):
         tba.stripe_half(x[:, :64, :64].bfloat16(),
-                        torch.zeros((1, 16, 16, 64), device=cuda, dtype=torch.bfloat16),
+                        torch.zeros((1, 16, 16, 96), device=cuda, dtype=torch.bfloat16),
                         w1, None, ls1, ls1, torch.zeros((1, 32, 512), device=cuda),
                         torch.zeros((1, 512, 32), device=cuda), (64, 8), 4)
 
@@ -366,9 +367,48 @@ def test_kernels_refuse_large_geometries(cuda):
 @pytest.mark.cuda
 def test_stripe_resident_fp32_takes_head_dim_64(cuda):
     """B2's CUDA-core route (fp32) at one head of d = 64, the widest its
-    shared memory holds; the bf16 route stops at 32."""
+    shared memory holds."""
     _run_stripe(cuda, torch.float32, (8, 16), 4, (4, 8), 32, 64, [tba.stripe_half],
                 c=64, heads=1, d=64)
+
+
+# Two heads of d = 64 at C = 128 (the tensor-core routes' rows of 64
+# columns), and one head of d = 40 (rows of 64, zeros past d)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 64), (1, 40)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_resident_kernel_at_head_dim_64(cuda, dtype, heads, d, shifted):
+    """B2 on both routes at GRL-S's 8 x 64 stripes (N1 = 512, N2 = 32) and
+    at 8 x 16 (N2 = 8)."""
+    for stripe, H, W in (((8, 64), 32, 128), ((8, 16), 32, 64)):
+        shift = (stripe[0] // 2, stripe[1] // 2) if shifted else (0, 0)
+        _run_stripe(cuda, dtype, stripe, 4, shift, H, W, [tba.stripe_half], c=128,
+                    batch=1, heads=heads, d=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 64), (1, 40)])
+@pytest.mark.parametrize("shift", [0, 16])
+def test_window_large_kernel_at_head_dim_64(cuda, dtype, heads, d, shift):
+    """B3 on both routes at window 32 (N = 1024), heads of d = 64 and
+    40."""
+    _run_window(cuda, dtype, (32, 32), shift, 64, 64, tba.window_half_large, c=128,
+                heads=heads, d=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", [(2, 64), (1, 40)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_stripe_large_kernels_at_head_dim_64(cuda, dtype, heads, d, shifted):
+    """B4's two steps on both routes at GRL-base's 64 x 64 stripes, df 2
+    (N1 = 4096, N2 = 1024), heads of d = 64 and 40."""
+    shift = (32, 32) if shifted else (0, 0)
+    _run_stripe(cuda, dtype, (64, 64), 2, shift, 128, 64,
+                [tba.stripe_a2w_large, tba.stripe_w2a_large], c=128, batch=1,
+                heads=heads, d=d)
 
 
 @pytest.mark.cuda
@@ -429,14 +469,16 @@ def _launched(fn, call):
 
 
 # (B, nW, h, d, N1, N2): GRL-S's 8x64 stripes at 256^2 (w2a, a2w),
-# GRL-base's window 32 and its 64x64-stripe a2w step at df 2, and a ragged
-# shape (N1 not a multiple of 32, N2 not a multiple of 128)
+# GRL-base's window 32 and its 64x64-stripe a2w step at df 2, a ragged
+# shape (N1 not a multiple of 32, N2 not a multiple of 128), and head dims
+# 64 and 40 (rows of 64 columns)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,with_bands", [
     ((2, 4, 2, 32, 512, 32), True), ((2, 4, 2, 32, 32, 512), True),
     ((1, 2, 3, 30, 1024, 1024), True), ((1, 2, 3, 30, 1024, 4096), False),
-    ((1, 3, 2, 16, 100, 70), True)])
+    ((1, 3, 2, 16, 100, 70), True), ((2, 4, 2, 64, 512, 32), True),
+    ((1, 2, 2, 64, 1024, 1024), False), ((1, 3, 1, 40, 100, 300), True)])
 def test_flash_kernel_matches_plain(cuda, dtype, shape, with_bands):
     B, nW, h, d, N1, N2 = shape
     rng = np.random.default_rng(8)
@@ -532,14 +574,14 @@ def test_packed_kernel_matches_plain(cuda, dtype, pack, with_mask, d):
 @pytest.mark.cuda
 def test_fused_kernels_refuse_beyond_their_limits(cuda):
     """Head dims beyond a kernel's tiles raise NotImplementedError before any
-    launch: 32 for B5, 64 for B6/B7 (whose keys stream in chunks, any
-    number of them)."""
+    launch: 64 for B5 and B6/B7 (whose keys stream in chunks, any number of
+    them)."""
     z = lambda *s: torch.zeros(s, device=cuda)   # noqa: E731
     ls = z(1, 1, 1)
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="head dim"):
-            tfa.flash_rect_attention(z(1, 1, 1, 64, 32), z(1, 1, 1, 64, 32),
-                                     z(1, 1, 1, 64, 32), ls, z(1, 32, 32))
+            tfa.flash_rect_attention(z(1, 1, 1, 72, 32), z(1, 1, 1, 72, 32),
+                                     z(1, 1, 1, 72, 32), ls, z(1, 32, 32))
         with pytest.raises(NotImplementedError, match="head dim"):
             tatt.fused_cosine_attention(z(1, 1, 1, 16, 72), z(1, 1, 1, 16, 72),
                                         z(1, 1, 1, 16, 72), ls, z(1, 16, 16))
@@ -573,13 +615,13 @@ def _block(dev, dtype, engine, window, stripe, groups, df, dim=256, heads=2, see
 @pytest.mark.parametrize("engine", ["v3", "fused"])
 @pytest.mark.parametrize("geometry", ["grl_s", "base_eval"])
 def test_head_dim_64_block_kernels_vs_plain(cuda, dtype, engine, geometry):
-    """A block of 2 + 2 heads of d = 64 (dim 256) runs without raising.  At
+    """A block of 2 + 2 heads of d = 64 (dim 256) runs on its kernels.  At
     GRL-S's geometry (window 8, 8 x 16 stripes at df 4) B1 or B6 takes the
-    window half and B7 (fused) or B2 (v3; its bf16 route holds 32 columns,
-    so bf16 runs its plain version) the stripe half; at GRL-base's eval
-    geometry (window 32, 64 x 64 stripes at df 2) B3, B4 and B5 hold 32
-    columns and both halves run plain.  Kernels on against off: fp32 within
-    5e-4, bf16 by rel L2 (the block's output is a residual sum ~N(0, 1))."""
+    window half and B2 (v3) or B7a twice (fused) the stripe half; at
+    GRL-base's eval geometry (window 32, 64 x 64 stripes at df 2) B3 and
+    B4's two steps (v3) or B5 three times (fused).  Kernels on against off:
+    fp32 within 5e-4, bf16 by rel L2 (the block's output is a residual sum
+    ~N(0, 1))."""
     from grlir_torch.models.grl import geometry_tensors
     from grlir_torch.ops.geometry import GeometryConfig
 
@@ -596,20 +638,18 @@ def test_head_dim_64_block_kernels_vs_plain(cuda, dtype, engine, geometry):
         k.launches = 0
     with torch.no_grad():
         got = blk(x.to(dtype), geom, dtype, kernels=True)
-        wide, launched = tba.wide_halves, [k.launches for k in
-                                           tba.KERNELS + tatt.KERNELS + tfa.KERNELS]
+        launched = {k.__name__: k.launches
+                    for k in tba.KERNELS + tatt.KERNELS + tfa.KERNELS if k.launches}
         want = blk(x.to(dtype), geom, dtype, kernels=False)
     torch.cuda.synchronize()
-    if geometry == "base_eval":
-        assert wide == 2 and sum(launched) == 0
-    elif engine == "fused":
-        assert wide == 0
-        assert tatt.fused_window_attention_qkv.launches == 1
-        assert tatt.fused_cosine_attention.launches == 2
-    else:
-        assert tba.window_half.launches == 1
-        assert wide == (1 if dtype == torch.bfloat16 else 0)
-        assert tba.stripe_half.launches == (0 if dtype == torch.bfloat16 else 1)
+    assert tba.unrouted_halves == 0
+    expect = {("grl_s", "v3"): {"window_half": 1, "stripe_half": 1},
+              ("grl_s", "fused"): {"fused_window_attention_qkv": 1,
+                                   "fused_cosine_attention": 2},
+              ("base_eval", "v3"): {"window_half_large": 1, "stripe_a2w_large": 1,
+                                    "stripe_w2a_large": 1},
+              ("base_eval", "fused"): {"flash_rect_attention": 3}}
+    assert launched == expect[geometry, engine]
     assert bool(torch.isfinite(got).all())
     diff = (got.float() - want.float())
     if dtype == torch.float32:
@@ -651,12 +691,14 @@ def _grad_case(dev, kind, dtype=torch.float32):
 @pytest.mark.parametrize("kind", ["window", "window_large", "stripe", "stripe_large"])
 def test_kernel_grads_match_plain(cuda, kind):
     """B1-B4 under grad with kernels on: the kernel runs forward (its launch
-    counts), the backward is the plain version's, so every gradient equals
-    kernels=False's (fp32: the forward outputs agree to 1e-4 and the
-    backward is the same code on the same inputs; torch's fp32
-    tolerances)."""
+    counts, and y equals its no-grad output to the bit and the plain
+    version's to FP32_TOL), the backward is the plain version's, so every
+    gradient equals kernels=False's (the backward is the same code on the
+    same inputs; torch's fp32 tolerances)."""
     args, call = _grad_case(cuda, kind)
-    cot = _rand(np.random.default_rng(15), *call(args, False).shape).to(cuda)
+    with torch.no_grad():
+        y_kernel, y_plain = call(args, True), call(args, False)
+    cot = _rand(np.random.default_rng(15), *y_plain.shape).to(cuda)
     grads = []
     launched = tba.KERNELS
     for kernels in (True, False):
@@ -666,6 +708,10 @@ def test_kernel_grads_match_plain(cuda, kind):
         (y * cot).sum().backward()
         assert sum(k.launches for k in launched) - before == (
             0 if not kernels else 2 if kind == "stripe_large" else 1)
+        # the forward under grad is the kernel's (bit-equal to its no-grad
+        # output), or the plain version's
+        assert torch.equal(y.detach(), y_kernel if kernels else y_plain)
         grads.append([t.grad for t in leaves])
+    _assert_close(y_kernel, y_plain, torch.float32)
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w)
