@@ -30,7 +30,12 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      counts and check that every bf16 launch took the tensor-core route and
      every fp32 one the CUDA-core route; the bf16 gate of these three is
      max(1e-2, 2 bf16 ulps of max|plain|), printed beside the plain path's
-     own spread;
+     own spread, but for B3's bf16 route, which is held to the stage gates
+     of `grlir_torch.b3_spread` (its attention against the plain attention
+     on its own q, k, v within 1e-2; its q, k, v bf16 flips at most twice
+     the plain path's plus 16, both counted against a float64-summed
+     projection; at most 1e-4 of the outputs off by more than 1e-2 end to
+     end);
   5. the fused engines (slice 3: B5 `flash_rect_attention`, B6
      `fused_window_attention_qkv`, B7a `fused_cosine_attention`, B7b
      `fused_cosine_attention_packed`): each kernel vs its plain version at
@@ -40,7 +45,11 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      eval geometry with engine "fused" (120 B5 launches a forward, the x4
      256^2 forward timed); the repair of geometries no TPU kernel takes (a
      GRL-base dn 1080x1920 frame restored whole in engine v3, depth cut to
-     one stage of four blocks); timing of each kernel.
+     one stage of four blocks); timing of each kernel.  B5 takes two routes
+     by its operands' type, bf16 on tensor cores (B4's attention kernel) and
+     fp32 on CUDA cores, counted like B1-B4's: its kernel cases, the fused
+     model phases, the served requests and the head-dim-64 blocks check
+     that every bf16 launch took the tensor-core route.
   Across the phases, B1's bf16 launches take one fused tensor-core kernel and
   are counted by route like B2-B4 (B1 is gated like them in bf16, at
   GRL-S's, GRL-base's and head dim 64's widths); B1's comparison is shown
@@ -76,15 +85,15 @@ GRL_S_HW = 256
 BASE_HW = 256              # GRL-base x4 LR timing size (an eval tile)
 BASE_MODEL_HW = 128        # GRL-base x4 bf16 kernels-vs-plain check
 BF16_MAX_ERR = 1e-2        # bf16 outputs: a few ulps at |y| < 1
-# The bf16 gate of the tensor-core routes (B2, B3, B4), max(BF16_MAX_ERR, 2
+# The bf16 gate of the tensor-core routes (B1, B2, B4), max(BF16_MAX_ERR, 2
 # bf16 ulps of max|plain|): their tensor-core sums of the projection round
 # k, q and v to bf16 in another order than the plain path, and the clamped
 # head's logit scale of 100 turns a one-ulp flip of k or q into about a
 # percent of a probability, so y moves by a fraction of the values it
 # averages.  Beside it the plain path's own spread is printed: the plain
-# path against itself with its projection summed in float64.
-ULP_GATED = ("window_half", "window_half_large", "stripe_half", "stripe_a2w_large",
-             "stripe_w2a_large")
+# path against itself with its projection summed in float64.  B3's bf16
+# route is held to the stage gates of grlir_torch.b3_spread instead.
+ULP_GATED = ("window_half", "stripe_half", "stripe_a2w_large", "stripe_w2a_large")
 FP32_TOL = 1e-4            # fp32: summation order only
 MODEL_FP32_MAX_ERR = 5e-4  # whole-model fp32 rounding-order drift
 MODEL_MIN_PSNR = 60.0      # bf16 whole model, kernels vs plain
@@ -168,7 +177,7 @@ def bound_ms(n_bytes: float, flops: float, dtype):
 
 
 KERNEL_KINDS = ("window_half_kernel", "stripe_half_kernel", "project_regions_kernel",
-                "anchor_units_kernel", "attend_kernel", "tokens_major_kernel",
+                "anchor_units_kernel", "attend_kernel", "flash_rows_kernel",
                 "cosine_tf32_kernel", "mma_attend_kernel", "mma_project_kernel",
                 "pad_rows_kernel", "mma_stripe_resident_kernel", "window_half_mma_kernel")
 # kernels of the tensor-core routes: bf16 only, not templated on the type
@@ -241,6 +250,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from grlir_torch.b3_spread import b3_stage_check, stage_failures, stage_line
     from grlir_torch.engines.inference import Restorer
     from grlir_torch.models import zoo
     from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
@@ -340,6 +350,8 @@ def main() -> int:
                  + bias.numel() * (2 if large else 4) + t[..., :Cw].numel() * it)
             return n, 2 * B_ * H * W_ * C * 3 * Cw + 4 * B_ * H * W_ * N * Cw
 
+        if large:   # B3's bf16 route split into its stages (b3_spread)
+            return fn, lib, cost, lambda t: b3_stage_check(t, w, b, ls, bias, bands, shift, h)
         return fn, lib, cost
 
     def stripe_parts(t, anchor, w, b, h, stripe, df, shift):
@@ -491,6 +503,15 @@ def main() -> int:
                     elif dtype == torch.float32:
                         ok = torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
                         tol = f"atol {FP32_TOL} rtol {FP32_TOL}"
+                    elif kname == "window_half_large":
+                        # the stage gates; the gated y is the wrapper's, the
+                        # stage split's plain y the plain version's
+                        st = spread[0](xt)
+                        same = (torch.equal(st["y"], got.float())
+                                and torch.equal(st["y_plain"], want.float()))
+                        ok = not stage_failures(st) and same
+                        tol = (f"stage gates: {stage_line(st)}; kernel and plain y those of the "
+                               f"stage split {same}")
                     elif kname in ULP_GATED:
                         top = want.float().abs().max().item()
                         gate = max(BF16_MAX_ERR, 2 * bf16_ulp(top))
@@ -531,22 +552,27 @@ def main() -> int:
         """A counts() dict: the given launches, 0 for every other kernel."""
         return {k.__name__: launched.get(k.__name__, 0) for k in all_kernels}
 
+    routed_kernels = ba.ROUTED + tfa.KERNELS
+
     def reset_counts():
         """Every launch count, the counts by route and
         block_attn.unrouted_halves to 0."""
         ba.reset_launches()
         for k in all_kernels:
             k.launches = 0
+        for k in tfa.KERNELS:
+            for r in k.route_launches:
+                k.route_launches[r] = 0
 
     def routes():
-        """Launches by route of B1-B4 (bf16 on tensor cores, fp32 on CUDA
+        """Launches by route of B1-B5 (bf16 on tensor cores, fp32 on CUDA
         cores)."""
-        return {k.__name__: dict(k.route_launches) for k in ba.ROUTED}
+        return {k.__name__: dict(k.route_launches) for k in routed_kernels}
 
     def expect_routes(route="tensor_core", **launched):
         """A routes() dict: the given launches on `route`, none elsewhere."""
         return {k.__name__: {r: launched.get(k.__name__, 0) if r == route else 0
-                             for r in ("tensor_core", "cuda_core")} for k in ba.ROUTED}
+                             for r in ("tensor_core", "cuda_core")} for k in routed_kernels}
 
     max_err, timing, served = {}, {}, {}
 
@@ -1076,14 +1102,18 @@ def main() -> int:
                 reset_counts()
                 y_k = m(lr)
                 torch.cuda.synchronize()
-                per_fwd, unrouted = counts(), ba.unrouted_halves
+                per_fwd, unrouted, per_route = counts(), ba.unrouted_halves, routes()
                 y_p = m_plain(lr)
             p = psnr(y_k, y_p)
             print(f"[model] GRL-S x4 bf16 {size}^2 engine {engine}: out {tuple(y_k.shape)}, "
-                  f"launches {per_fwd} per forward, unrouted halves {unrouted}, PSNR "
+                  f"launches {per_fwd} per forward, B5 by route "
+                  f"{per_route['flash_rect_attention']}, unrouted halves {unrouted}, PSNR "
                   f"kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
             check(per_fwd == want and unrouted == 0,
                   f"GRL-S engine {engine} {size}^2 launches {per_fwd}")
+            check(per_route == expect_routes(
+                flash_rect_attention=want["flash_rect_attention"]),
+                f"GRL-S engine {engine} {size}^2 routes {per_route}")
             check(tuple(y_k.shape) == (1, 4 * size, 4 * size, 3)
                   and bool(torch.isfinite(y_k).all()), f"engine {engine} output")
             check(p >= MODEL_MIN_PSNR, f"engine {engine} {size}^2 PSNR < {MODEL_MIN_PSNR} dB")
@@ -1110,12 +1140,12 @@ def main() -> int:
         outs = [Restorer(fz, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        got, unrouted = counts(), ba.unrouted_halves
+        got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
         served.update({k: got[k] for k in ("flash_rect_attention", "fused_window_attention_qkv",
                                            "fused_cosine_attention",
                                            "fused_cosine_attention_packed")})
         print(f"[serve] GRL-S engine fused: 3 requests in {serve_s:.2f} s, launches {got}, "
-              f"unrouted halves {unrouted}")
+              f"B5 by route {got_routes['flash_rect_attention']}, unrouted halves {unrouted}")
         for (label, img, kw), out in zip(requests, outs):
             ref = Restorer(fz_plain, dev, scale=4, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -1132,6 +1162,8 @@ def main() -> int:
                             flash_rect_attention=2 * 2 * n_blocks,
                             fused_cosine_attention=2 * n_blocks) and unrouted == 0,
               f"GRL-S engine fused served launches {got}")
+        check(got_routes == expect_routes(flash_rect_attention=2 * 2 * n_blocks),
+              f"GRL-S engine fused served routes {got_routes}")
 
     with Phase("GRL-base fused engine"):
         bf = twin(base, engine="fused")
@@ -1142,15 +1174,17 @@ def main() -> int:
             reset_counts()
             y_k = bf(lr)
             torch.cuda.synchronize()
-            per_fwd, unrouted = counts(), ba.unrouted_halves
+            per_fwd, unrouted, per_route = counts(), ba.unrouted_halves, routes()
             y_p = bf_plain(lr)
         p = psnr(y_k, y_p)
         print(f"[model] GRL-base x4 bf16 {BASE_MODEL_HW}^2 engine fused (window 32, stripes "
-              f"64x64, df 2): out {tuple(y_k.shape)}, launches {per_fwd} per forward, "
-              f"unrouted halves {unrouted}, PSNR kernels vs plain {p:.2f} dB, rel L2 "
-              f"{rel_l2(y_k, y_p):.3e}")
+              f"64x64, df 2): out {tuple(y_k.shape)}, launches {per_fwd} per forward, B5 by "
+              f"route {per_route['flash_rect_attention']}, unrouted halves {unrouted}, PSNR "
+              f"kernels vs plain {p:.2f} dB, rel L2 {rel_l2(y_k, y_p):.3e}")
         check(per_fwd == expect(flash_rect_attention=3 * n_blocks) and unrouted == 0,
               f"GRL-base engine fused launches {per_fwd}")
+        check(per_route == expect_routes(flash_rect_attention=3 * n_blocks),
+              f"GRL-base engine fused routes {per_route}")
         check(tuple(y_k.shape) == (1, 4 * BASE_MODEL_HW, 4 * BASE_MODEL_HW, 3)
               and bool(torch.isfinite(y_k).all()), "GRL-base engine fused output")
         check(p >= MODEL_MIN_PSNR, f"GRL-base engine fused PSNR < {MODEL_MIN_PSNR} dB")

@@ -11,53 +11,88 @@
 // its probabilities are rounded to the input type, every product summed in fp32.
 //
 // Two kernels on one stream:
-//   tokens_major_kernel  (window, head) slices of d x N channel-major -> N x d token-major,
-//                        unit-normed for q and k, rounded to T: one thread per token, so
-//                        neighbouring threads read neighbouring addresses;
-//   attend_kernel        (large_attn.cuh, shared with B3/B4) one block per (window, head,
-//                        32 query rows), keys and values streamed through shared memory in
-//                        chunks of 128 in two passes (max and sum, then probabilities
-//                        times v), y written channel-major.
+//   flash_rows_kernel   one launch for q, k and v: a block takes 64 tokens of one (window,
+//                       head) slice of one of them, reads its d x 64 channel-major values
+//                       with neighbouring threads on neighbouring tokens, transposes them
+//                       through shared memory, unit-norms q and k in fp32 (no scale: it
+//                       comes after the product) and writes token-major rows rounded to
+//                       the input type: for bf16 rows of head_cols(d) = 32 or 64 columns,
+//                       zeros past d, in 16-byte stores (the rows mma_attend_kernel reads
+//                       through ldmatrix); for fp32 rows of d;
+//   bf16: mma_attend_kernel<false> (stripe_attn_mma.cuh, B4's tensor-core attention)
+//                       one block of 4 warps per (window, head, 64 query rows), keys, values
+//                       and the bf16 bias tile streamed in chunks of 64 through shared
+//                       memory, q k^T and p v on mma.sync with fp32 accumulators, two passes
+//                       (max and sum, then probabilities normalised and rounded times v),
+//                       y written channel-major;
+//   fp32: attend_kernel (large_attn.cuh) on CUDA cores, one lane per query row: TF32
+//                       products would not hold fp32.
 //
-// What bounds it on an H100: as for B3/B4, fp32 FMAs on CUDA cores, 2 N1 N2 d for the
-// logits (twice: one pass for max and sum, one for the probabilities) and N1 N2 d for the
-// product with v, a window and head, on operands rounded to the input type.  The bias
-// (h, N1, N2) is read once per row tile and the token-major q/k/v workspace, written once,
-// stays in L2 at the main path's sizes.  Tensor cores (mma/wgmma) are later work.
-#include "large_attn.cuh"
+// What bounds it on an H100: the operations, 4 N1 N2 d a window and head (logits and the
+// product with v) at the bf16 tensor-core rate, against the bytes of q, k, v, the bias and
+// y once.  The two-pass softmax recomputes the logits (6 N1 N2 d on the card), and a
+// block's 64 rows share each key chunk; the bias tile of a (head, row tile) is read by the
+// blocks of every window in flight at once (the window is the grid's fastest index), so it
+// comes from HBM about once.
+#include <type_traits>
+
+#include "stripe_attn_mma.cuh"
 
 namespace grlir {
 namespace {
 
-// dst[gh][n][e] = src[gh][e][n] (e < d), times rsqrt(max(sum_e src^2, 1e-24)) summed in
-// fp32 when norm is set, rounded to T.  Grid (ceil(N / kThreads), groups * heads).
+constexpr int kRowTokens = 64;  // tokens a block of flash_rows_kernel
+
+// Rows of q, k and v: block (gh, t) of the grid takes tokens 64 t' .. 64 t' + 63 of slice
+// gh of q (t < tq, t' = t), k (tq <= t < tq + tk) or v (the rest).  src (d, N)
+// channel-major -> dst[gh][n][0..ld), times rsqrt(max(sum_e src^2, 1e-24)) summed in fp32
+// for q and k, rounded to T; zeros from d to ld.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tokens_major_kernel(const T* __restrict__ src, T* __restrict__ dst, int d, int N, int norm) {
-  const int gh = blockIdx.y, n = blockIdx.x * kThreads + threadIdx.x;
-  if (n >= N) return;
-  const T* s = src + (size_t)gh * d * N + n;
-  float v[kMaxD];
-  float ss = 0.f;
-#pragma unroll
-  for (int e = 0; e < kMaxD; ++e) {
-    v[e] = e < d ? to_f(s[(size_t)e * N]) : 0.f;
-    ss = fmaf(v[e], v[e], ss);
-  }
-  const float inv = norm ? rsqrtf(fmaxf(ss, 1e-24f)) : 1.f;
-  T* o = dst + ((size_t)gh * N + n) * d;
-#pragma unroll
-  for (int e = 0; e < kMaxD; ++e)
-    if (e < d) o[e] = from_f<T>(v[e] * inv);
-}
+flash_rows_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  T* __restrict__ ws_q, T* __restrict__ ws_k, T* __restrict__ ws_v, int d,
+                  int ld, int N1, int N2) {
+  __shared__ float tile[kRowTokens][kMaxD + 1];  // [token][channel]: conflict-free both ways
+  __shared__ float inv[kRowTokens];
+  const int tq = (N1 + kRowTokens - 1) / kRowTokens, tk = (N2 + kRowTokens - 1) / kRowTokens;
+  const int gh = blockIdx.x, tid = threadIdx.x;
+  int t = blockIdx.y;
+  const int part = t < tq ? 0 : t < tq + tk ? 1 : 2;
+  t -= part == 0 ? 0 : part == 1 ? tq : tq + tk;
+  const int N = part ? N2 : N1, n0 = t * kRowTokens, nt = min(kRowTokens, N - n0);
+  const T* src = (part == 0 ? q : part == 1 ? k : v) + (size_t)gh * d * N + n0;
+  T* dst = (part == 0 ? ws_q : part == 1 ? ws_k : ws_v) + ((size_t)gh * N + n0) * ld;
 
-template <typename T>
-int launch_tokens_major(const void* src, void* dst, int gh, int d, int N, int norm,
-                        cudaStream_t stream) {
-  const dim3 grid((N + kThreads - 1) / kThreads, gh);
-  tokens_major_kernel<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(src),
-                                                         static_cast<T*>(dst), d, N, norm);
-  return static_cast<int>(cudaGetLastError());
+  for (int i = tid; i < d * kRowTokens; i += kThreads) {
+    const int e = i / kRowTokens, n = i % kRowTokens;
+    tile[n][e] = n < nt ? to_f(src[(size_t)e * N + n]) : 0.f;
+  }
+  __syncthreads();
+  if (tid < kRowTokens) {
+    float ss = 0.f;
+    for (int e = 0; e < d; ++e) ss = fmaf(tile[tid][e], tile[tid][e], ss);
+    inv[tid] = part < 2 ? rsqrtf(fmaxf(ss, 1e-24f)) : 1.f;
+  }
+  __syncthreads();
+  // the tile's nt rows of ld values are contiguous in dst
+  if constexpr (std::is_same<T, bf16>::value) {
+    for (int i = tid; i < nt * (ld / 8); i += kThreads) {
+      const int r = i / (ld / 8), c = (i % (ld / 8)) * 8;
+      unsigned w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = c + 2 * j;
+        w[j] = pack_bf16(e < d ? tile[r][e] * inv[r] : 0.f,
+                         e + 1 < d ? tile[r][e + 1] * inv[r] : 0.f);
+      }
+      *reinterpret_cast<uint4*>(dst + (size_t)r * ld + c) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    for (int i = tid; i < nt * ld; i += kThreads) {
+      const int r = i / ld, e = i % ld;
+      dst[i] = from_f<T>(e < d ? tile[r][e] * inv[r] : 0.f);
+    }
+  }
 }
 
 template <typename T>
@@ -65,20 +100,25 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
                  const void* bias, const int* bands_q, const int* bands_k, void* ws_q,
                  void* ws_kv, void* y, int groups, int windows, int heads, int d, int N1,
                  int N2, cudaStream_t stream) {
+  constexpr bool kTensorCores = std::is_same<T, bf16>::value;
   if (d > kMaxD) return -1;
-  const int gh = groups * heads;
+  const int gh = groups * heads, ld = kTensorCores ? head_cols(d) : d;
+  const long long tiles = 2LL * ((N2 + kRowTokens - 1) / kRowTokens) +
+                          (N1 + kRowTokens - 1) / kRowTokens;
+  if (tiles > 65535) return -1;
   T* wk = static_cast<T*>(ws_kv);
-  T* wv = wk + (size_t)gh * N2 * d;
-  int err = launch_tokens_major<T>(q, ws_q, gh, d, N1, 1, stream);
-  if (!err) err = launch_tokens_major<T>(k, wk, gh, d, N2, 1, stream);
-  if (!err) err = launch_tokens_major<T>(v, wv, gh, d, N2, 0, stream);
+  T* wv = wk + (size_t)gh * N2 * ld;
+  flash_rows_kernel<T><<<dim3(gh, static_cast<unsigned>(tiles)), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(ws_q), wk, wv, d, ld, N1, N2);
+  const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   AttnArgs a{};
   a.q = ws_q;
   a.k = wk;
   a.v = wv;
-  a.q_stride = (long long)N1 * d;
-  a.k_stride = a.v_stride = (long long)N2 * d;
+  a.q_stride = (long long)N1 * ld;
+  a.k_stride = a.v_stride = (long long)N2 * ld;
   a.Nq = N1;
   a.Nk = N2;
   a.d = d;
@@ -90,7 +130,10 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
   a.band_k = bands_k;
   a.out = y;
   a.out_cm = 1;
-  return launch_attend<T, T, false>(a, groups, stream);
+  if constexpr (kTensorCores)
+    return launch_mma_attend<false>(a, groups, stream);
+  else
+    return launch_attend<float, float, false>(a, groups, stream);
 }
 
 }  // namespace
@@ -99,9 +142,10 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
 // q (groups, heads, d, N1), k and v (groups, heads, d, N2) in x's type, channel-major;
 // scale (heads,) fp32; bias (heads, N1, N2) in x's type; bands_q (windows, N1) and
 // bands_k (windows, N2) int32, or both null (window g of the batch reads row g % windows);
-// ws_q: groups * heads * N1 * d and ws_kv: 2 * groups * heads * N2 * d elements of x's
-// type; y (groups, heads, d, N1) out.  Returns 0, -1 (d > 64 or shared memory) or a
-// cudaError_t.
+// ws_q: groups * heads * N1 * ld and ws_kv: 2 * groups * heads * N2 * ld elements of x's
+// type, ld = head_cols(d) (32 or 64) for bf16, d for fp32; y (groups, heads, d, N1) out.
+// bf16 runs on tensor cores, fp32 on CUDA cores.  Returns 0, -1 (d > 64, shared memory,
+// or more than 65535 token tiles) or a cudaError_t.
 extern "C" int grlir_flash_rect_attention(const void* q, const void* k, const void* v,
                                           const float* scale, const void* bias,
                                           const int* bands_q, const int* bands_k, void* ws_q,

@@ -683,8 +683,8 @@ def _pack_w(w, p0: int, nparts: int) -> torch.Tensor:
 
 
 def _count_route(fn, x: torch.Tensor) -> None:
-    """One launch of B1, B2, B3 or a B4 step on the route x's type takes:
-    bf16 on tensor cores, fp32 on CUDA cores."""
+    """One launch of B1, B2, B3, a B4 step or B5 on the route x's type
+    takes: bf16 on tensor cores, fp32 on CUDA cores."""
     fn.launches += 1
     fn.route_launches[
         "tensor_core" if x.dtype == torch.bfloat16 else "cuda_core"] += 1

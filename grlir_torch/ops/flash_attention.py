@@ -16,7 +16,9 @@ input type.  These are the rounding points of B4 (`block_attn`), whose
 attention kernel this one shares on the card.
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
-raises; a CPU tensor runs the plain version.  `kernels=False` runs the
+raises, on the route its type picks before any launch (bf16 on tensor
+cores, fp32 on CUDA cores; `flash_rect_attention.route_launches` counts
+them); a CPU tensor runs the plain version.  `kernels=False` runs the
 plain version on any device.
 """
 
@@ -29,6 +31,8 @@ from grlir_torch.ops.block_attn import (
     MAX_D,
     _band_mask,
     _check_inference,
+    _count_route,
+    _head_cols,
     _ptr,
     _scale,
     _stream,
@@ -63,9 +67,10 @@ def flash_rect_attention_ref(q, k, v, logit_scale, bias, bands_q=None,
 
 def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
                          bands_k=None, kernels: bool = True) -> torch.Tensor:
-    """B5: the CUDA kernel of `csrc/flash_attention.cu` for CUDA tensors,
-    `flash_rect_attention_ref` for CPU tensors or when kernels=False.
-    Arguments as in `flash_rect_attention_ref`."""
+    """B5: the CUDA kernels of `csrc/flash_attention.cu` for CUDA tensors
+    (tensor cores for bf16, CUDA cores for fp32), `flash_rect_attention_ref`
+    for CPU tensors or when kernels=False.  Arguments as in
+    `flash_rect_attention_ref`."""
     if (bands_q is None) != (bands_k is None):
         raise ValueError("flash_rect_attention: pass both bands_q and "
                          "bands_k, or neither")
@@ -98,19 +103,23 @@ def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
     # every operand the kernel reads stays referenced until it is enqueued
     scale = _scale(logit_scale).contiguous()
     bias = bias.to(_bias_dtype(q)).contiguous()
-    # q, k unit-normed and v, token-major: the attention kernel's operands
-    ws_q = torch.empty((B * nW * h, N1, d), dtype=q.dtype, device=q.device)
-    ws_kv = torch.empty((2, B * nW * h, N2, d), dtype=q.dtype, device=q.device)
+    # q, k unit-normed and v, token-major: the attention kernel's operands,
+    # in rows of 32 or 64 columns (zeros past d) for the tensor cores
+    ld = _head_cols(d) if q.dtype == torch.bfloat16 else d
+    ws_q = torch.empty((B * nW * h, N1, ld), dtype=q.dtype, device=q.device)
+    ws_kv = torch.empty((2, B * nW * h, N2, ld), dtype=q.dtype, device=q.device)
     y = torch.empty_like(q)
     err = cuda_build.library().grlir_flash_rect_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(scale), _ptr(bias), _ptr(bands[0]),
         _ptr(bands[1]), _ptr(ws_q), _ptr(ws_kv), _ptr(y), B * nW, nW, h, d, N1,
         N2, int(q.dtype == torch.bfloat16), _stream(q))
     cuda_build.check(err, "flash_rect_attention", f"N1={N1}, N2={N2} at d={d}")
-    flash_rect_attention.launches += 1
+    _count_route(flash_rect_attention, q)
     return y
 
 
 flash_rect_attention.launches = 0
+flash_rect_attention.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
+# each with a tensor-core and a CUDA-core route, as `block_attn.ROUTED`
 KERNELS = (flash_rect_attention,)

@@ -18,16 +18,20 @@ inputs random from seed 0:
   B1  `window_half` at GRL-S x4 256^2 (window 8, shifted by 4 with band
       ids), 2 heads of d = 32, C = 128;
   B5-B7 at the shapes of chip_smoke.py's timing rows (GRL-S, 2 heads of
-      d = 32): B5 `flash_rect_attention` on the 256^2 H stripes' w2a step
-      (8x64 stripes, shifted), B6 `fused_window_attention_qkv` and B7b
+      d = 32): B5 `flash_rect_attention` on the 256^2 H stripes' w2a and
+      a2w steps (8x64 stripes, shifted), B6 `fused_window_attention_qkv` and B7b
       `fused_cosine_attention_packed` (P 4) on the 256^2 windows (shifted),
       B7a `fused_cosine_attention` on the 128^2 H stripes' w2a step
       (shifted);
+  B5 at GRL-base's eval shapes, x4 SR 256^2, 3 heads of d = 30, with band
+      ids: window 32 shifted by 16, and the 64x64 stripes' a2w (1024
+      anchors against 4096 tokens) and w2a steps at df 2;
   GRL-S x4 256^2 bs1 forward and GRL-base x4 256^2 bs1 forward at its
       released eval geometry (window 32, stripes 64x64, df 2), engine v3,
-      random weights from seed 0: the device-busy share, the CUDA kernel
-      time of profiled forwards over the wall time of as many forwards run
-      without the profiler.
+      and GRL-base's with engine fused (B5 on every half), random weights
+      from seed 0: the device-busy share, the CUDA kernel time of profiled
+      forwards over the wall time of as many forwards run without the
+      profiler.
 
 Prints, for each, every CUDA kernel's device time a call (a B4 step: a2w
 and w2a averaged), then the card's nvidia-smi name and power limit.  Needs
@@ -85,20 +89,21 @@ def profiled(fn, calls: int):
 
 def report(label: str, fn, per: int, unit: str) -> None:
     """Print the device time a `unit` (`per` of them a call of fn) by
-    kernel."""
+    kernel: each kernel's time a launch times its launches a call (its
+    launches over the calls, rounded up) over `per`, so that a call whose
+    events the profiler dropped counts for nothing rather than for zero."""
     rows, _ = profiled(fn, CALLS)
-    total = sum(t for t, _, _ in rows)
-    print(f"[profile_b4] {label}: {total / (per * CALLS) / 1e3:.4f} ms of device time a "
-          f"{unit} ({CALLS * per} {unit}s)")
+    rows = [(t / count * math.ceil(count / CALLS) / per, key, count) for t, key, count in rows]
+    print(f"[profile_b4] {label}: {sum(t for t, _, _ in rows) / 1e3:.4f} ms of device time a "
+          f"{unit} ({per * CALLS} {unit}s)")
     for t, key, count in sorted(rows, reverse=True):
-        print(f"[profile_b4]   {t / (per * CALLS) / 1e3:.4f} ms a {unit}  {count:4d} calls  "
-              f"{key[:90]}")
+        print(f"[profile_b4]   {t / 1e3:.4f} ms a {unit}  {count:4d} calls  {key[:90]}")
 
 
-def forward_busy(label: str, cfg, hw: int, dev, g) -> None:
-    """Print the device-busy share of a bs1 bf16 forward of cfg on a random
-    hw x hw image, and its largest kernels."""
-    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16)),
+def forward_busy(label: str, cfg, hw: int, dev, g, engine: str = "v3") -> None:
+    """Print the device-busy share of a bs1 bf16 forward of cfg with the
+    given engine on a random hw x hw image, and its largest kernels."""
+    model = init_weights(GRL(replace(cfg, dtype=torch.bfloat16, engine=engine)),
                          torch.Generator().manual_seed(0)).eval().to(dev)
     lr = torch.rand(1, hw, hw, 3, generator=g).to(dev)
     with torch.no_grad():
@@ -112,7 +117,7 @@ def forward_busy(label: str, cfg, hw: int, dev, g) -> None:
         wall = time.perf_counter() - t0
     rows, wall_prof = profiled(lambda: model(lr), CALLS)
     busy = sum(t for t, _, _ in rows) / 1e6
-    print(f"[profile_b4] {label} forward, engine v3: "
+    print(f"[profile_b4] {label} forward, engine {engine}: "
           f"{busy / CALLS * 1e3:.3f} ms of CUDA kernel time (profiled) and "
           f"{wall / CALLS * 1e3:.3f} ms of wall time (not profiled; {wall_prof / CALLS * 1e3:.3f} "
           f"profiled) a forward, {CALLS} forwards each: device busy {100 * busy / wall:.1f}% "
@@ -157,6 +162,32 @@ def fused_kernels(cfg, geom, geom128, rnd) -> None:
                 for m, sd in ((n1, 1.0), (n2, 1.0), (n2, 0.25)))
     b2 = 16 * torch.sigmoid(rnd(heads, n1, n2))
     report("B5 flash_rect_attention, GRL-S 256^2 H stripes (8, 64) w2a (shifted)",
+           lambda: tfa.flash_rect_attention(q, a, x1, ls, b2, bs, bsa), 1, "call")
+    k, v = (rnd(1, ns, heads, d, n1, std=sd).bfloat16() for sd in (1.0, 0.25))
+    b1 = 16 * torch.sigmoid(rnd(heads, n2, n1))
+    report("B5 flash_rect_attention, GRL-S 256^2 H stripes (8, 64) a2w (shifted)",
+           lambda: tfa.flash_rect_attention(a, k, v, ls, b1, bsa, bs), 1, "call")
+
+
+def flash_base(base, rnd, dev) -> None:
+    """B5 at GRL-base's eval shapes (x4 SR 256^2, 3 heads of d = 30), bf16,
+    shifted with band ids: window 32 and the 64x64 stripes' two steps."""
+    geom = geometry_tensors(base.geometry_config, (256, 256), dev)
+    ls = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
+    bw = geom["bands_w"]
+    nw, n = bw.shape
+    q, k, v = (rnd(1, nw, 3, 30, n, std=sd).bfloat16() for sd in (1.0, 1.0, 0.25))
+    bias = 16 * torch.sigmoid(rnd(3, n, n))
+    report("B5 flash_rect_attention, GRL-base 256^2 window (32, 32) shift 16",
+           lambda: tfa.flash_rect_attention(q, k, v, ls, bias, bw, bw), 1, "call")
+    bs, bsa = geom["bands_sh"], geom["bands_sh_a"]
+    (ns, n1), n2 = bs.shape, bsa.shape[1]
+    a, x1 = rnd(1, ns, 3, 30, n2).bfloat16(), rnd(1, ns, 3, 30, n2, std=0.25).bfloat16()
+    q, k, v = (rnd(1, ns, 3, 30, n1, std=sd).bfloat16() for sd in (1.0, 1.0, 0.25))
+    b1, b2 = 16 * torch.sigmoid(rnd(3, n2, n1)), 16 * torch.sigmoid(rnd(3, n1, n2))
+    report("B5 flash_rect_attention, GRL-base 256^2 stripe (64, 64) a2w (shifted)",
+           lambda: tfa.flash_rect_attention(a, k, v, ls, b1, bsa, bs), 1, "call")
+    report("B5 flash_rect_attention, GRL-base 256^2 stripe (64, 64) w2a (shifted)",
            lambda: tfa.flash_rect_attention(q, a, x1, ls, b2, bs, bsa), 1, "call")
 
 
@@ -228,6 +259,8 @@ def main() -> int:
                            anchor_window_down_factor=2, stripe_size=(64, 64),
                            stripe_groups=(None, None))
     forward_busy(f"GRL-base x4 {hw}^2 bs1 bf16", base, hw, dev, g)
+    flash_base(base, rnd, dev)
+    forward_busy(f"GRL-base x4 {hw}^2 bs1 bf16", base, hw, dev, g, engine="fused")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)

@@ -16,8 +16,14 @@ GRL-base's width (C = 180), B4 on the ragged V stripes of the 1080p repair
 and on an odd geometry, B2 at GRL-S's and GRL-base's widths in both stripe
 directions and at C = 90 (x rows not 8-byte aligned); B2, B3 and B4 count
 each launch on its route (bf16 on tensor cores, fp32 on CUDA cores); B1-B5
-also at head dims up to 64.  The fused engines' kernels run at GRL-S's and GRL-base's
-shapes and at ragged ones: B5 (`flash_rect_attention`), B6
+also at head dims up to 64.  B3's bf16 route is held to the stage gates of
+`grlir_torch.b3_spread` (its attention against the plain attention on its
+own q, k, v; its q, k, v bf16 flips against the plain path's, both counted
+against a float64-summed projection; the share of outputs off by more
+than 1e-2 end to end), also over the twelve input draws of `b3_spread`.
+The fused engines' kernels run at GRL-S's and GRL-base's
+shapes and at ragged ones: B5 (`flash_rect_attention`, bf16 on tensor
+cores, fp32 on CUDA cores, counted by route), B6
 (`fused_window_attention_qkv`), B7a (`fused_cosine_attention`, token-major
 and d-major operands) and B7b (`fused_cosine_attention_packed`, the same
 function as B7a).
@@ -29,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from grlir_torch import b3_spread
 from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as tba
 from grlir_torch.ops import flash_attention as tfa
@@ -155,8 +162,8 @@ def _base_weights(rng, dev, c=BC, heads=BH, d=BD):
 
 def _routes(fns):
     """The launches by route of the kernels among fns that have two routes
-    (B2, B3, B4)."""
-    return [dict(f.route_launches) for f in fns if f in tba.ROUTED]
+    (B1-B5)."""
+    return [dict(f.route_launches) for f in fns if f in tba.ROUTED + tfa.KERNELS]
 
 
 def _expect_routes(fns, routes, dtype):
@@ -181,7 +188,22 @@ def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC, heads=BH, d=
     torch.cuda.synchronize()
     assert launches_of.launches == before + 1
     _expect_routes([launches_of], routes, dtype)
+    if launches_of is tba.window_half_large and dtype == torch.bfloat16:
+        _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want)
+        return
     _assert_close(got, want, dtype, ulp_gate=launches_of is tba.window_half)
+
+
+def _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want):
+    """B3's bf16 route against its stage gates (`b3_spread.stage_failures`)
+    in place of a flat end-to-end bound: at logit scale 100 a one-ulp flip
+    of a large q or k value in a near-tied row moves y by several ulps
+    (ROADMAP C4).  The gated y is the wrapper's, and the stage split's
+    plain y is the plain version's."""
+    st = b3_spread.b3_stage_check(x, w, b, ls, bias, bands, shift, heads)
+    assert torch.equal(st["y"], got.float())
+    assert torch.equal(st["y_plain"], want.float())
+    assert not b3_spread.stage_failures(st), b3_spread.stage_line(st)
 
 
 def _run_stripe(dev, dtype, stripe, df, shift, H, W, launch_fns, c=BC, batch=B,
@@ -399,6 +421,26 @@ def test_window_large_kernel_at_head_dim_64(cuda, dtype, heads, d, shift):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,heads,d", b3_spread.SHAPES)
+@pytest.mark.parametrize("shift", b3_spread.SHIFTS)
+@pytest.mark.parametrize("seed", b3_spread.SEEDS)
+def test_window_large_bf16_stage_gates(cuda, seed, shift, c, heads, d):
+    """B3's bf16 route on the twelve input draws of `b3_spread` (three seeds,
+    shifted and not, GRL-base's 3 heads of d = 30 and 2 heads of d = 64 at
+    window 32 on 2 x 64^2): every draw within the three stage gates.  Seed
+    6 draws the inputs of `_run_window`."""
+    x, w, b, ls, bias, bands = b3_spread.draw(seed, shift, c, heads, d, cuda)
+    routes = _routes([tba.window_half_large])
+    with torch.no_grad():
+        got = tba.window_half(x, w, b, ls, bias, b3_spread.WINDOW, bands, shift)
+        want = tba.window_half(x, w, b, ls, bias, b3_spread.WINDOW, bands, shift,
+                               kernels=False)
+    torch.cuda.synchronize()
+    _expect_routes([tba.window_half_large], routes, torch.bfloat16)
+    _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("heads,d", [(2, 64), (1, 40)])
 @pytest.mark.parametrize("shifted", [False, True])
@@ -488,7 +530,10 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, with_bands):
     bias = 16 * torch.sigmoid(_rand(rng, h, N1, N2)).to(cuda)
     bands = [_bands(rng, nW, n, cuda) if with_bands else None for n in (N1, N2)]
     args = (q, k, v, _scales(h, cuda), bias, *bands)
+    routes = _routes([tfa.flash_rect_attention])
     got = _launched(tfa.flash_rect_attention, lambda: tfa.flash_rect_attention(*args))
+    # bf16 on tensor cores, fp32 on CUDA cores
+    _expect_routes([tfa.flash_rect_attention], routes, dtype)
     with torch.no_grad():
         want = tfa.flash_rect_attention(*args, kernels=False)
     _assert_close(got, want, dtype)
@@ -636,11 +681,18 @@ def test_head_dim_64_block_kernels_vs_plain(cuda, dtype, engine, geometry):
     tba.reset_launches()
     for k in tatt.KERNELS + tfa.KERNELS:
         k.launches = 0
+    routes = _routes(tfa.KERNELS)
     with torch.no_grad():
         got = blk(x.to(dtype), geom, dtype, kernels=True)
         launched = {k.__name__: k.launches
                     for k in tba.KERNELS + tatt.KERNELS + tfa.KERNELS if k.launches}
         want = blk(x.to(dtype), geom, dtype, kernels=False)
+    # every B5 launch on dtype's route: tensor cores for bf16, CUDA cores
+    # for fp32
+    for r in routes:
+        r["tensor_core" if dtype == torch.bfloat16 else "cuda_core"] += launched.get(
+            "flash_rect_attention", 0)
+    assert _routes(tfa.KERNELS) == routes
     torch.cuda.synchronize()
     assert tba.unrouted_halves == 0
     expect = {("grl_s", "v3"): {"window_half": 1, "stripe_half": 1},

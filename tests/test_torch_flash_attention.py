@@ -67,14 +67,20 @@ def test_flash_logit_scale_is_clamped():
 
 def test_flash_dispatch_on_cpu():
     """kernels=True on CPU tensors runs the plain version and launches
-    nothing; bands come in pairs; an input that needs grad raises."""
+    nothing on either route; bands come in pairs; an input that needs grad
+    raises."""
     args, bands = _case((1, 2, 2, 16, 64, 32), True, seed=2)
     targs, tb = list(map(_t, args)), list(map(_t, bands))
     before = tfa.flash_rect_attention.launches
+    routes = dict(tfa.flash_rect_attention.route_launches)
     got = tfa.flash_rect_attention(*targs, *tb)
     assert torch.equal(got, tfa.flash_rect_attention_ref(*targs, *tb))
     assert torch.equal(got, tfa.flash_rect_attention(*targs, *tb, kernels=False))
+    bf = [t.bfloat16() for t in targs[:3]]
+    assert torch.equal(tfa.flash_rect_attention(*bf, *targs[3:], *tb),
+                       tfa.flash_rect_attention_ref(*bf, *targs[3:], *tb))
     assert tfa.flash_rect_attention.launches == before
+    assert tfa.flash_rect_attention.route_launches == routes
     with pytest.raises(ValueError, match="both"):
         tfa.flash_rect_attention(*targs, tb[0], None)
     q = targs[0].clone().requires_grad_(True)
