@@ -50,6 +50,31 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      fp32 on CUDA cores, counted like B1-B4's: its kernel cases, the fused
      model phases, the served requests and the head-dim-64 blocks check
      that every bf16 launch took the tensor-core route.
+     B5's bf16 route is also run over the twelve input draws of
+     `grlir_torch.b5_spread` at GRL-base's three steps and held to the stage
+     gates of `b3_spread` (ROADMAP C5);
+  6. the Restorer on CUDA graphs (ROADMAP A6): GRL-S x4 256^2 (bucket 64) and
+     GRL-base's dn tile pair (a 256x480 image as two 256^2 tiles, stripes
+     64x128), each on its one graph: the replay against the eager kernel
+     path on the same input (max|diff|, PSNR >= 60 dB); the launches counted
+     over the shape's first call (WARMUP_FORWARDS eager forwards and the
+     capture), over WARMUP_FORWARDS + 1, equal to an eager forward's (B1 and
+     B2 16 each; B3, B4a and B4b 40 each); one profiled replay launching
+     every CUDA kernel of the port as often as those calls launch them
+     (PER_CALL) and as an eager forward does; a qkv weight scaled by 1.001
+     in place moving the next replay, which matches eager with that weight;
+     eager against replay in paired CUDA-event runs, ms a forward, MP/s and
+     the device-busy share of each;
+  7. validation (ROADMAP A6): three structured 1024^2 GT images, LR by the
+     port's imresize(1/4), in two batches that repeat one index, through
+     `validate` with GRL-S x4 on its graph and again with kernels=False
+     (PSNR, PSNR-Y, SSIM, SSIM-Y, PSNR-B, PSNR-B-Y, then NIQE on a GT-free
+     copy): the two within 0.01 dB and 1e-4 of SSIM, and the card's metrics
+     of the first batch within 1e-3 dB and 1e-5 of the same restorations
+     scored on the CPU.
+  On the card the Restorer runs every served request on a CUDA graph, so
+  the serve phases count the launches of the traced forwards (each graph's
+  warm-up forwards and capture); its replays launch without counting.
   Across the phases, B1's bf16 launches take one fused tensor-core kernel and
   are counted by route like B2-B4 (B1 is gated like them in bf16, at
   GRL-S's, GRL-base's and head dim 64's widths); B1's comparison is shown
@@ -72,12 +97,14 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
 from dataclasses import replace
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -211,6 +238,91 @@ def ptxas_report(log: str):
     return lines
 
 
+# the CUDA kernels one bf16 call of each block-half wrapper launches
+# (csrc/*.cu): B2, B3 and B4 project on tensor cores first; B4's steps
+# unit-norm the anchors, w2a pads x1's rows
+PER_CALL = {
+    "window_half": {"window_half_mma_kernel": 1},
+    "stripe_half": {"mma_project_kernel": 1, "mma_stripe_resident_kernel": 1},
+    "window_half_large": {"mma_project_kernel": 1, "mma_attend_kernel": 1},
+    "stripe_a2w_large": {"anchor_units_kernel": 1, "mma_project_kernel": 1,
+                         "mma_attend_kernel": 1},
+    "stripe_w2a_large": {"anchor_units_kernel": 1, "mma_project_kernel": 1,
+                         "pad_rows_kernel": 1, "mma_attend_kernel": 1},
+}
+GRAPH_RUNS = 10            # paired eager / replay timings of a forward
+VAL_HW = 1024              # validation GT size (LR 256^2 at x4)
+VAL_DB_TOL, VAL_SSIM_TOL = 0.01, 1e-4          # kernels vs kernels=False
+HOST_DB_TOL, HOST_SSIM_TOL = 1e-3, 1e-5        # card vs CPU metrics
+
+
+def profile_kernels(fn, calls: int = 1):
+    """fn() `calls` times under torch.profiler: ({CUDA kernel of the port:
+    launches}, device ms a call of every CUDA kernel and copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grlir_torch.profile_b4 import device_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    port, dev_us = {}, 0.0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us += device_us(e)
+        m = re.search(r"(\w+_kernel)[<(]", e.key)
+        if m and m.group(1) in KERNEL_KINDS:
+            port[m.group(1)] = port.get(m.group(1), 0) + e.count
+    return port, dev_us / 1e3 / calls
+
+
+def kernels_of(calls: dict) -> dict:
+    """The CUDA kernels that `calls` ({wrapper: bf16 calls}) launch."""
+    want = {}
+    for w, n in calls.items():
+        for k, c in PER_CALL.get(w, {}).items() if n else ():
+            want[k] = want.get(k, 0) + n * c
+    return want
+
+
+def paired_ms(fn_a, fn_b, runs):
+    """CUDA-event times of fn_a and fn_b in turns (a, b, b, a, ...): two
+    lists of ms."""
+    times = ([], [])
+    for i in range(runs):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            (fn_a, fn_b)[j]()
+            b.record()
+            b.synchronize()
+            times[j].append(a.elapsed_time(b))
+    return times
+
+
+def spread(ts) -> str:
+    return f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, max {max(ts):.3f})"
+
+
+def val_images(seed: int, n: int, hw: int) -> np.ndarray:
+    """n structured RGB images (gradients, edges, checks, texture) on the
+    1/255 grid, (n, hw, hw, 3) float32 from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:hw, 0:hw].astype(np.float32) / hw
+    out = []
+    for i in range(n):
+        f = 6 + 4 * i
+        base = (0.5 + 0.25 * np.sin(2 * np.pi * f * x) * np.cos(2 * np.pi * (f - 3) * y)
+                + 0.15 * (((x * 16).astype(int) + (y * 16).astype(int)) % 2) - 0.075)
+        tint = np.array([1.0, 0.9 - 0.1 * i, 0.8 + 0.1 * i], np.float32)
+        img = base[..., None] * tint + 0.03 * rng.standard_normal((hw, hw, 3))
+        out.append(np.round(np.clip(img, 0, 1) * 255) / 255)
+    return np.stack(out).astype(np.float32)
+
+
 def bf16_ulp(v: float) -> float:
     """The bf16 ulp at |v| (8 significant bits)."""
     return 2.0 ** (math.frexp(abs(v))[1] - 8)
@@ -250,8 +362,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from grlir_torch import b5_spread
     from grlir_torch.b3_spread import b3_stage_check, stage_failures, stage_line
-    from grlir_torch.engines.inference import Restorer
+    from grlir_torch.engines.inference import WARMUP_FORWARDS, Restorer
     from grlir_torch.models import zoo
     from grlir_torch.models.grl import GRL, geometry_tensors, init_weights
     from grlir_torch.ops import attention as tatt
@@ -554,16 +667,6 @@ def main() -> int:
 
     routed_kernels = ba.ROUTED + tfa.KERNELS
 
-    def reset_counts():
-        """Every launch count, the counts by route and
-        block_attn.unrouted_halves to 0."""
-        ba.reset_launches()
-        for k in all_kernels:
-            k.launches = 0
-        for k in tfa.KERNELS:
-            for r in k.route_launches:
-                k.route_launches[r] = 0
-
     def routes():
         """Launches by route of B1-B5 (bf16 on tensor cores, fp32 on CUDA
         cores)."""
@@ -573,6 +676,13 @@ def main() -> int:
         """A routes() dict: the given launches on `route`, none elsewhere."""
         return {k.__name__: {r: launched.get(k.__name__, 0) if r == route else 0
                              for r in ("tensor_core", "cuda_core")} for k in routed_kernels}
+
+    def traced(*restorers) -> int:
+        """The forwards that ran the model's Python code, and so moved the
+        launch counts, in the calls of these Restorers: on the card each
+        padded shape runs WARMUP_FORWARDS eager forwards and one captured;
+        its replays launch the captured kernels without counting them."""
+        return sum(len(r.graphs) for r in restorers) * (WARMUP_FORWARDS + 1)
 
     max_err, timing, served = {}, {}, {}
 
@@ -622,7 +732,7 @@ def main() -> int:
         lr = torch.rand(1, *hw, 3, generator=g).to(dev)
         n_blocks = sum(cfg.depths)
         with torch.no_grad():
-            reset_counts()
+            ba.reset_launches()
             y_k = model(lr)
             torch.cuda.synchronize()
             per_fwd, per_route = counts(), routes()
@@ -643,7 +753,7 @@ def main() -> int:
         m32.load_state_dict(model.state_dict())
         p32.load_state_dict(model.state_dict())
         with torch.no_grad():
-            reset_counts()
+            ba.reset_launches()
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
             per_route = routes()
         print(f"[model] GRL-S x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
@@ -663,15 +773,18 @@ def main() -> int:
             ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
              {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
         ]
-        reset_counts()
+        restorers = [Restorer(model, dev, scale=4, **kw) for _, _, kw in requests]
+        ba.reset_launches()
         t0 = time.perf_counter()
-        outs = [Restorer(model, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
+        outs = [r(img.numpy()) for r, (_, img, _) in zip(restorers, requests)]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
+        fwd = traced(*restorers)
         served.update(window_half=got["window_half"], stripe_half=got["stripe_half"])
-        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s, launches {got}, B1-B4 by "
-              f"route {got_routes}, unrouted halves {unrouted}")
+        print(f"[serve] GRL-S: 4 requests in {serve_s:.2f} s on {fwd // (WARMUP_FORWARDS + 1)} "
+              f"CUDA graphs ({fwd} traced forwards), launches {got}, B1-B4 by route "
+              f"{got_routes}, unrouted halves {unrouted}")
         for (label, img, kw), out in zip(requests, outs):
             ref = Restorer(plain, dev, scale=4, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -682,11 +795,13 @@ def main() -> int:
                   f"PSNR vs plain {p:.2f} dB")
             check(tuple(out.shape) == (bsz, 4 * h_, 4 * w_, 3) and finite, label)
             check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
-        check(got == expect(window_half=4 * n_blocks, stripe_half=4 * n_blocks)
+        check(fwd == 4 * (WARMUP_FORWARDS + 1), f"GRL-S served graphs: {fwd} traced forwards")
+        check(got == expect(window_half=fwd * n_blocks, stripe_half=fwd * n_blocks)
               and unrouted == 0,
-              f"GRL-S served launches {got} != 4 forwards x {n_blocks}")
-        check(got_routes == expect_routes(window_half=4 * n_blocks, stripe_half=4 * n_blocks),
+              f"GRL-S served launches {got} != {fwd} forwards x {n_blocks}")
+        check(got_routes == expect_routes(window_half=fwd * n_blocks, stripe_half=fwd * n_blocks),
               f"GRL-S served routes {got_routes}")
+        del restorers
 
     with Phase("GRL-S timing"):
         last_stripe = [c for c in cases_s if c[0] == "stripe_half"][-1]
@@ -767,7 +882,7 @@ def main() -> int:
         lr = torch.rand(1, BASE_MODEL_HW, BASE_MODEL_HW, 3, generator=g).to(dev)
         mem = {}
         with torch.no_grad():
-            reset_counts()
+            ba.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             y_k = base(lr)
             torch.cuda.synchronize()
@@ -797,7 +912,7 @@ def main() -> int:
         m32.load_state_dict(base.state_dict())
         p32.load_state_dict(base.state_dict())
         with torch.no_grad():
-            reset_counts()
+            ba.reset_launches()
             err32 = (m32(lr[:, :64, :64]) - p32(lr[:, :64, :64])).abs().max().item()
             per_route = routes()
         print(f"[model] GRL-base x4 fp32 64^2: max|diff| kernels vs plain {err32:.3e} "
@@ -828,18 +943,23 @@ def main() -> int:
             ("dn 321x481 tiled 256/32, stripes 64x128", dn, dn_plain, 1,
              torch.rand(1, 321, 481, 3, generator=g), tiled),
         ]
-        forwards = 1 + 1 + 3   # the dn request: 6 tiles in batches of 2
-        reset_counts()
+        # the dn request: 6 tiles in batches of 2, one shape
+        restorers = [Restorer(m, dev, scale=sc, **kw) for _, m, _, sc, _, kw in requests]
+        ba.reset_launches()
         t0 = time.perf_counter()
-        outs = [Restorer(m, dev, scale=sc, **kw)(img.numpy())
-                for _, m, _, sc, img, kw in requests]
+        outs = [r(img.numpy()) for r, (_, _, _, _, img, _) in zip(restorers, requests)]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
+        forwards = traced(*restorers)
         served.update({k: got[k] for k in ("window_half_large", "stripe_a2w_large",
                                            "stripe_w2a_large")})
-        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s, launches {got}, B1-B4 by "
-              f"route {got_routes}, unrouted halves {unrouted}")
+        print(f"[serve] GRL-base: 3 requests in {serve_s:.2f} s on "
+              f"{forwards // (WARMUP_FORWARDS + 1)} CUDA graphs ({forwards} traced forwards), "
+              f"launches {got}, B1-B4 by route {got_routes}, unrouted halves {unrouted}")
+        check(forwards == 3 * (WARMUP_FORWARDS + 1),
+              f"GRL-base served graphs: {forwards} traced forwards")
+        del restorers
         for (label, _, m_plain, sc, img, kw), out in zip(requests, outs):
             ref = Restorer(m_plain, dev, scale=sc, **kw)(img.numpy())
             bsz, h_, w_, _ = img.shape
@@ -1074,6 +1194,20 @@ def main() -> int:
                         flash_case(q_t, a_t, x1_t, ls3, 16 * torch.sigmoid(rnd(3, n1, n2)),
                                    bs, bsa), q_t))
         run_cases(cases_f, max_err)
+        # B5's bf16 route at GRL-base's three steps over the twelve input
+        # draws of b5_spread, held to the stage gates (ROADMAP C5: the flat
+        # 1e-2 fails on half of them); the C entry is called directly, so
+        # no launch is counted
+        worst = {}
+        for seed in b5_spread.SEEDS:
+            for step, args in b5_spread.draw(seed, dev).items():
+                st = b5_spread.b5_stage_check(*args)
+                worst[step] = max(worst.get(step, 0.0), st["e2e_err"])
+                print(f"[C5] flash_rect_attention GRL-base {step} seed {seed} bf16: max|diff| "
+                      f"{st['e2e_err']:.3e}; stage gates: {stage_line(st)}")
+                check(not stage_failures(st), f"C5 B5 GRL-base {step} seed {seed}")
+        print("[C5] flash_rect_attention bf16 max|diff| over the twelve draws: "
+              + ", ".join(f"{s_} {e:.3e}" for s_, e in worst.items()))
 
     with Phase("GRL-S fused engine"):
         fz = init_weights(GRL(replace(s_cfg, dtype=torch.bfloat16, engine="fused")),
@@ -1099,7 +1233,7 @@ def main() -> int:
         for engine, size, m, m_plain, want in runs:
             lr = torch.rand(1, size, size, 3, generator=g).to(dev)
             with torch.no_grad():
-                reset_counts()
+                ba.reset_launches()
                 y_k = m(lr)
                 torch.cuda.synchronize()
                 per_fwd, unrouted, per_route = counts(), ba.unrouted_halves, routes()
@@ -1135,12 +1269,17 @@ def main() -> int:
             ("384x384 tiled 256/32", torch.rand(1, 384, 384, 3, generator=g),
              {"tile": 256, "tile_overlap": 32, "tile_batch": 4}),
         ]
-        reset_counts()
+        restorers = [Restorer(fz, dev, scale=4, **kw) for _, _, kw in requests]
+        ba.reset_launches()
         t0 = time.perf_counter()
-        outs = [Restorer(fz, dev, scale=4, **kw)(img.numpy()) for _, img, kw in requests]
+        outs = [r(img.numpy()) for r, (_, img, _) in zip(restorers, requests)]
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
+        # one graph a request: each ran WARMUP_FORWARDS + 1 traced forwards
+        w1 = WARMUP_FORWARDS + 1
+        check(traced(*restorers) == 3 * w1, "GRL-S engine fused served graphs")
+        del restorers
         served.update({k: got[k] for k in ("flash_rect_attention", "fused_window_attention_qkv",
                                            "fused_cosine_attention",
                                            "fused_cosine_attention_packed")})
@@ -1158,11 +1297,11 @@ def main() -> int:
             check(p >= MODEL_MIN_PSNR, f"{label}: PSNR vs plain path")
         # 256^2 and the 4 tiles of 384^2 (one batch) take B5 and B6, the
         # 128^2 bucket of 120x128 B7a and B6
-        check(got == expect(fused_window_attention_qkv=3 * n_blocks,
-                            flash_rect_attention=2 * 2 * n_blocks,
-                            fused_cosine_attention=2 * n_blocks) and unrouted == 0,
+        check(got == expect(fused_window_attention_qkv=3 * w1 * n_blocks,
+                            flash_rect_attention=2 * 2 * w1 * n_blocks,
+                            fused_cosine_attention=2 * w1 * n_blocks) and unrouted == 0,
               f"GRL-S engine fused served launches {got}")
-        check(got_routes == expect_routes(flash_rect_attention=2 * 2 * n_blocks),
+        check(got_routes == expect_routes(flash_rect_attention=2 * 2 * w1 * n_blocks),
               f"GRL-S engine fused served routes {got_routes}")
 
     with Phase("GRL-base fused engine"):
@@ -1171,7 +1310,7 @@ def main() -> int:
         n_blocks = sum(sr_cfg.depths)
         lr = torch.rand(1, BASE_MODEL_HW, BASE_MODEL_HW, 3, generator=g).to(dev)
         with torch.no_grad():
-            reset_counts()
+            ba.reset_launches()
             y_k = bf(lr)
             torch.cuda.synchronize()
             per_fwd, unrouted, per_route = counts(), ba.unrouted_halves, routes()
@@ -1203,11 +1342,15 @@ def main() -> int:
         rp = rp.to(dev)
         rp_plain = twin(rp, kernels=False)
         frame = torch.rand(1, 1080, 1920, 3, generator=g)
-        reset_counts()
+        rp_r = Restorer(rp, dev, scale=1)
+        ba.reset_launches()
         t0 = time.perf_counter()
-        out = torch.from_numpy(Restorer(rp, dev, scale=1)(frame.numpy()))
+        out = torch.from_numpy(rp_r(frame.numpy()))
         rp_s = time.perf_counter() - t0
         got, unrouted, got_routes = counts(), ba.unrouted_halves, routes()
+        w1 = traced(rp_r)       # one graph: WARMUP_FORWARDS + 1 traced forwards
+        check(w1 == WARMUP_FORWARDS + 1, "repair graphs")
+        del rp_r
         ref = torch.from_numpy(Restorer(rp_plain, dev, scale=1)(frame.numpy()))
         finite = bool(torch.isfinite(out).all())
         p = psnr(out, ref)
@@ -1215,11 +1358,12 @@ def main() -> int:
               f"{tuple(out.shape)} in {rp_s:.2f} s, finite {finite}, launches {got}, "
               f"B1-B4 by route {got_routes}, unrouted halves {unrouted}, PSNR vs "
               f"kernels=False {p:.2f} dB")
-        check(unrouted == 2 and got == expect(window_half=4, stripe_a2w_large=2,
-                                              stripe_w2a_large=2),
+        check(unrouted == 2 * w1 and got == expect(window_half=4 * w1,
+                                                   stripe_a2w_large=2 * w1,
+                                                   stripe_w2a_large=2 * w1),
               f"repair launches {got}, unrouted halves {unrouted}")
-        check(got_routes == expect_routes(window_half=4, stripe_a2w_large=2,
-                                          stripe_w2a_large=2),
+        check(got_routes == expect_routes(window_half=4 * w1, stripe_a2w_large=2 * w1,
+                                          stripe_w2a_large=2 * w1),
               f"repair routes {got_routes}")
         check(tuple(out.shape) == (1, 1080, 1920, 3) and finite, "repair output")
         check(p >= MODEL_MIN_PSNR, "repair: PSNR vs kernels=False")
@@ -1247,7 +1391,7 @@ def main() -> int:
                 torch.Generator().manual_seed(5)).eval().to(dev)
             xb = x[:, :hw, :hw].bfloat16()
             with torch.no_grad():
-                reset_counts()
+                ba.reset_launches()
                 y_k = blk(xb, geom, torch.bfloat16, kernels=True)
                 torch.cuda.synchronize()
                 got, got_routes = counts(), routes()
@@ -1303,7 +1447,7 @@ def main() -> int:
                 grads, ran, same = [], [], []
                 for kern in (True, False):
                     leaves = [a.detach().clone().requires_grad_(True) for a in args]
-                    reset_counts()
+                    ba.reset_launches()
                     y = call(leaves, kern)
                     ran.append(sum(counts().values()))
                     same.append(torch.equal(y.detach(), y_ng[kern]))
@@ -1356,6 +1500,140 @@ def main() -> int:
         print(f"[time] GRL-base x4 {BASE_HW}^2 bs1 bf16 forward, engine fused (window 32, "
               f"stripes 64x64, df 2): kernels {k_ms:.3f} ms ({mp / (k_ms / 1e3):.4f} MP/s), "
               f"plain {p_ms:.3f} ms ({mp / (p_ms / 1e3):.4f} MP/s) [{smi}]")
+
+    # 6. the Restorer on CUDA graphs (ROADMAP A6): one graph a padded shape
+    with Phase("graph"):
+        gs = init_weights(GRL(replace(zoo.GRL_SMALL, dtype=torch.bfloat16)),
+                          torch.Generator().manual_seed(0)).eval().to(dev)
+        graph_cases = [
+            # (label, model, image, scale, Restorer options, LR MP a forward, tiles)
+            (f"GRL-S x4 {GRL_S_HW}^2 bs1", gs, torch.rand(1, GRL_S_HW, GRL_S_HW, 3, generator=g),
+             4, {"shape_bucket": 64}, GRL_S_HW * GRL_S_HW / 1e6, 1),
+            ("GRL-base dn 256x480 as 2 x 256^2 tiles (stripes 64x128)", dn,
+             torch.rand(1, 256, 480, 3, generator=g), 1,
+             {"tile": 256, "tile_overlap": 32, "tile_batch": 2}, 2 * 256 * 256 / 1e6, 2),
+        ]
+        for label, m, img, sc, kw, mp, tiles in graph_cases:
+            r = Restorer(m, dev, scale=sc, **kw)
+            ba.reset_launches()
+            out = r(img.numpy())     # warm-up forwards, capture, replay
+            torch.cuda.synchronize()
+            traced_counts, w1 = counts(), WARMUP_FORWARDS + 1
+            check(len(r.graphs) == 1 and all(n % w1 == 0 for n in traced_counts.values()),
+                  f"{label}: graphs {list(r.graphs)}, counts {traced_counts}")
+            per_capture = {k: n // w1 for k, n in traced_counts.items()}
+            gr = next(iter(r.graphs.values()))
+            x = gr.static_in
+            with torch.no_grad():
+                ba.reset_launches()
+                y_eager = m(x).float()
+                torch.cuda.synchronize()
+                eager_counts = counts()
+            gr.graph.replay()
+            torch.cuda.synchronize()
+            y_graph = gr.static_out.float().clone()
+            err, p = (y_graph - y_eager).abs().max().item(), psnr(y_graph, y_eager)
+            print(f"[graph] {label}: input {tuple(x.shape)}, output {tuple(out.shape)}, launches "
+                  f"a captured forward {dict((k, n) for k, n in per_capture.items() if n)} "
+                  f"(eager {dict((k, n) for k, n in eager_counts.items() if n)}); replay vs "
+                  f"eager max|diff| {err:.3e}, PSNR {p:.2f} dB")
+            check(per_capture == eager_counts and any(per_capture.values()),
+                  f"{label}: captured launches {per_capture} != eager {eager_counts}")
+            check(p >= MODEL_MIN_PSNR and bool(torch.isfinite(y_graph).all()),
+                  f"{label}: replay vs eager PSNR")
+            want_k = kernels_of(per_capture)
+            got_k, dev_replay = profile_kernels(gr.graph.replay)
+            with torch.no_grad():
+                eager_k, dev_eager = profile_kernels(lambda: m(x))
+            print(f"[graph] {label}: CUDA kernels of the port in one profiled replay {got_k}, "
+                  f"in one eager forward {eager_k}, from the captured launches {want_k}")
+            check(got_k == want_k == eager_k, f"{label}: replay kernels {got_k} != {want_k}")
+            # a weight written in place is seen by the next replay
+            wt = m.layers[0].blocks[0].attn.qkv.body.weight
+            keep = wt.detach().clone()
+            with torch.no_grad():
+                wt.mul_(1.001)
+                gr.graph.replay()
+                y_moved = gr.static_out.float().clone()
+                y_eager_moved = m(x).float()
+                wt.copy_(keep)
+            moved = (y_moved - y_graph).abs().max().item()
+            p_moved = psnr(y_moved, y_eager_moved)
+            print(f"[graph] {label}: qkv weight of block 0 x 1.001 in place: replay moved by "
+                  f"max {moved:.3e}, vs eager with that weight max|diff| "
+                  f"{(y_moved - y_eager_moved).abs().max().item():.3e}, PSNR {p_moved:.2f} dB")
+            check(moved > 0 and p_moved >= MODEL_MIN_PSNR, f"{label}: in-place weight write")
+            with torch.no_grad():
+                t_eager, t_replay = paired_ms(lambda: m(x), gr.graph.replay, GRAPH_RUNS)
+            me, mr = statistics.median(t_eager), statistics.median(t_replay)
+            print(f"[time] {label} bf16: eager {spread(t_eager)} a forward, "
+                  f"{me / tiles:.3f} ms a tile, {mp / (me / 1e3):.4f} MP/s, device-busy "
+                  f"{100 * dev_eager / me:.1f}% ({dev_eager:.3f} ms of kernels); CUDA graph "
+                  f"replay {spread(t_replay)} a forward, {mr / tiles:.3f} ms a tile, "
+                  f"{mp / (mr / 1e3):.4f} MP/s, device-busy {100 * dev_replay / mr:.1f}% "
+                  f"({dev_replay:.3f} ms of kernels); {GRAPH_RUNS} paired runs [{smi}]")
+            del r, gr, x
+        del graph_cases
+
+    # 7. validation on the card (ROADMAP A6): GRL-S x4 on its graph, then
+    # kernels=False, on a synthetic set whose indices overlap across batches
+    with Phase("validate"):
+        from grlir_torch.engines.validate import validate
+        from grlir_torch.utils.matlab import imresize
+
+        gts = val_images(8, 3, VAL_HW)
+        lrs = np.stack([imresize(im, 0.25) for im in gts])
+        gt_free = np.zeros((3, 1), np.float32)   # blind SR sets' placeholder
+
+        def loader(gt):
+            """Two batches of two; the second repeats index 1."""
+            return [{"img_lq": lrs[s_], "img_gt": gt[s_], "indices": np.array(i),
+                     "filenames": [f"val{j}.png" for j in i]}
+                    for s_, i in ((slice(0, 2), [0, 1]), (slice(1, 3), [1, 2]))]
+
+        class OnHost:
+            """A Restorer's restorations, scored on the CPU."""
+            device = torch.device("cpu")
+
+            def __init__(self, restorer):
+                self.restorer = restorer
+
+            def __call__(self, img):
+                return self.restorer(img)
+
+        full = ("psnr", "psnr_y", "ssim", "ssim_y", "psnrb", "psnrb_y")
+        res = {}
+        for tag, m in (("kernels", gs), ("kernels=False", twin(gs, kernels=False))):
+            r = Restorer(m, dev, scale=4, shape_bucket=64)
+            t0 = time.perf_counter()
+            res[tag] = validate(r, loader(gts), full, task="sr", scale=4)
+            t_full = time.perf_counter() - t0
+            res[tag].update(validate(r, loader(gt_free), ("niqe",), task="sr", scale=4))
+            t_all = time.perf_counter() - t0
+            print(f"[validate] GRL-S x4 {tag}, 3 images {VAL_HW}^2 (LR {VAL_HW // 4}^2) in 2 "
+                  f"batches, index 1 twice, graphs {[tuple(k) for k in r.graphs]}: "
+                  f"{ {k: round(v, 6) for k, v in res[tag].items()} }; six metrics "
+                  f"{t_full:.2f} s, with NIQE {t_all:.2f} s")
+            check(all(math.isfinite(v) for v in res[tag].values()), f"validate {tag}")
+            if tag == "kernels":
+                # the first batch (two images) scored on the card and on the
+                # CPU: float64 SSIM filters take seconds an image on the CPU
+                card = validate(r, loader(gts)[:1], full, task="sr", scale=4)
+                host = validate(OnHost(r), loader(gts)[:1], full, task="sr", scale=4)
+                diff = {k: abs(host[k] - card[k]) for k in full}
+                print(f"[validate] card vs CPU metrics of the same restorations (batch 1): |diff| "
+                      f"{ {k: f'{v:.2e}' for k, v in diff.items()} } (max {HOST_DB_TOL} dB, "
+                      f"SSIM {HOST_SSIM_TOL})")
+                check(all(v <= (HOST_SSIM_TOL if k.startswith("ssim") else HOST_DB_TOL)
+                          for k, v in diff.items()), "validate: card vs CPU metrics")
+            del r
+        diff = {k: abs(res["kernels"][k] - res["kernels=False"][k]) for k in res["kernels"]}
+        print(f"[validate] kernels vs kernels=False: |diff| "
+              f"{ {k: f'{v:.2e}' for k, v in diff.items()} } (max {VAL_DB_TOL} dB, SSIM "
+              f"{VAL_SSIM_TOL})")
+        check(all(v <= (VAL_SSIM_TOL if k.startswith("ssim") else VAL_DB_TOL)
+                  for k, v in diff.items() if k != "niqe"),
+              "validate: kernels vs kernels=False")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],

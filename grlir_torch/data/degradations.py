@@ -1,0 +1,124 @@
+"""The degradations validation synthesizes on the device: demosaicking (dm)
+and kernel deblurring (db), the counterpart of the device side of
+`grlir.data.degradations`.
+
+  - `dm_matlab`: the MATLAB (Malvar) demosaicking init of a packed RGGB
+    mosaic, one 5x5 conv of its four kernels, then the strided fills;
+  - `apply_blur` and `db_forward`: blur(gt) + noise as a grouped conv with
+    zero padding, the kernel's support cropped in training;
+  - `get_blur_kernel`: the Gaussian (MATLAB fspecial) or one of Levin's
+    real kernels (`grlir_torch/assets/Levin09.npy`, a byte copy of grlir's
+    asset), flipped so that the correlation is a true convolution.
+
+NHWC tensors in and out; the convolutions run in the input's type with
+TF32 off.  The data-pipeline side (training and validation noise, JPEG,
+mosaicking) comes with the training slice (ROADMAP A7).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from grlir_torch.utils.image import depthwise_conv
+
+ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "assets")
+
+
+def _dm_kernels() -> np.ndarray:
+    """The 4 Malvar demosaic kernels, (4, 5, 5)."""
+    kgrb = np.array(
+        [[0, 0, -1, 0, 0],
+         [0, 0, 2, 0, 0],
+         [-1, 2, 4, 2, -1],
+         [0, 0, 2, 0, 0],
+         [0, 0, -1, 0, 0]], np.float32) / 8
+    krbg0 = np.array(
+        [[0, 0, 0.5, 0, 0],
+         [0, -1, 0, -1, 0],
+         [-1, 4, 5, 4, -1],
+         [0, -1, 0, -1, 0],
+         [0, 0, 0.5, 0, 0]], np.float32) / 8
+    krbg1 = krbg0.T
+    krbbr = np.array(
+        [[0, 0, -1.5, 0, 0],
+         [0, 2, 0, 2, 0],
+         [-1.5, 0, 6, 0, -1.5],
+         [0, 2, 0, 2, 0],
+         [0, 0, -1.5, 0, 0]], np.float32) / 8
+    return np.stack([kgrb, krbg0, krbg1, krbbr])
+
+
+def dm_matlab(cfa4: torch.Tensor) -> torch.Tensor:
+    """MATLAB (Malvar) demosaicking init: (B, H/2, W/2, 4) packed RGGB ->
+    (B, H, W, 3) RGB."""
+    B, h2, w2, _ = cfa4.shape
+    cfa = torch.zeros((B, 2 * h2, 2 * w2), dtype=cfa4.dtype, device=cfa4.device)
+    cfa[:, 0::2, 0::2] = cfa4[..., 0]
+    cfa[:, 0::2, 1::2] = cfa4[..., 1]
+    cfa[:, 1::2, 0::2] = cfa4[..., 2]
+    cfa[:, 1::2, 1::2] = cfa4[..., 3]
+
+    pad = F.pad(cfa[:, None], (2, 2, 2, 2), mode="reflect")
+    k = torch.as_tensor(_dm_kernels(), dtype=cfa.dtype, device=cfa.device)[:, None]
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=False, allow_tf32=False):
+        conv = F.conv2d(pad, k)                          # (B, 4, H, W)
+
+    # from the replicated CFA, fill the interpolated sites
+    r, g, b = cfa.clone(), cfa.clone(), cfa.clone()
+    g[:, 0::2, 0::2] = conv[:, 0, 0::2, 0::2]
+    g[:, 1::2, 1::2] = conv[:, 0, 1::2, 1::2]
+    r[:, 0::2, 1::2] = conv[:, 1, 0::2, 1::2]
+    r[:, 1::2, 0::2] = conv[:, 2, 1::2, 0::2]
+    r[:, 1::2, 1::2] = conv[:, 3, 1::2, 1::2]
+    b[:, 0::2, 1::2] = conv[:, 2, 0::2, 1::2]
+    b[:, 1::2, 0::2] = conv[:, 1, 1::2, 0::2]
+    b[:, 0::2, 0::2] = conv[:, 3, 0::2, 0::2]
+    return torch.stack([r, g, b], dim=-1)
+
+
+def get_blur_kernel(kernel_type: str = "gaussian") -> np.ndarray:
+    """(kh, kw) float32, flipped so that a correlation with it is a true
+    convolution."""
+    if kernel_type == "gaussian":
+        k = _fspecial_gaussian(25, 1.6)
+    elif "real" in kernel_type:
+        path = os.path.join(ASSET_DIR, "Levin09.npy")
+        with open(path, "rb") as f:
+            k = np.load(f, allow_pickle=True)[0, int(kernel_type[-1]) - 1]
+    else:
+        raise ValueError(kernel_type)
+    return np.flip(k.astype(np.float32)).copy()
+
+
+def _fspecial_gaussian(hsize: int, sigma: float) -> np.ndarray:
+    """MATLAB fspecial('gaussian')."""
+    siz = (hsize - 1.0) / 2.0
+    x, y = np.meshgrid(np.arange(-siz, siz + 1), np.arange(-siz, siz + 1))
+    h = np.exp(-(x * x + y * y) / (2.0 * sigma * sigma))
+    h[h < np.finfo(float).eps * h.max()] = 0
+    s = h.sum()
+    return h / s if s != 0 else h
+
+
+def apply_blur(target: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """The kernel over every channel of NHWC target, zero padding k // 2."""
+    kh, kw = kernel.shape
+    return depthwise_conv(target, np.ascontiguousarray(kernel, np.float32),
+                          (kh // 2, kw // 2))
+
+
+def db_forward(noise: torch.Tensor, target: torch.Tensor, kernel: np.ndarray,
+               training: bool):
+    """Deblurring input synthesis: lq = blur(gt) + noise; training also
+    crops the kernel's support from both."""
+    bkh, bkw = kernel.shape[0] // 2, kernel.shape[1] // 2
+    lq = noise + apply_blur(target, kernel)
+    if training:
+        lq = lq[:, bkh:-bkh, bkw:-bkw, :]
+        target = target[:, bkh:-bkh, bkw:-bkw, :]
+    return lq, target

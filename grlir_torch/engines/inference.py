@@ -2,12 +2,17 @@
 `grlir.engines.inference`, without the device mesh).
 
 Tiles share one shape and run in fixed-size groups; the overlapping outputs
-are averaged on the host.
+are averaged on the host.  On a CUDA device each padded input shape (a
+bucket, or a tile group) runs one CUDA graph of the model's forward,
+captured at its first call: the port's counterpart of grlir's jit, compiled
+once a shape.  The graph replays every kernel of the forward from one
+launch, so the host no longer dispatches a thousand operations a forward.
+A CPU device runs the forward eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -31,13 +36,37 @@ def reflect_pad_to(img: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
     return np.pad(img, pad, mode=mode)
 
 
+# forwards run eagerly on a side stream before a shape's capture: they
+# build and load the kernels, and set up cuBLAS and cuDNN, outside it
+WARMUP_FORWARDS = 2
+
+
+class _Graph:
+    """One captured forward: its static input buffer, the graph, and the
+    output tensor each replay rewrites."""
+
+    def __init__(self, static_in, graph, static_out):
+        self.static_in = static_in
+        self.graph = graph
+        self.static_out = static_out
+
+
 class Restorer:
     """Runs a model on numpy NHWC images, whole or in overlapping tiles.
 
     model: NHWC tensor in [0, 1] on `device` -> NHWC tensor (a GRL).
     tile=0 runs whole images; shape_bucket pads whole images up to the next
     multiple (one reflect) and crops the output, so assorted sizes share a
-    few shapes.  Calls run under torch.no_grad()."""
+    few shapes.  Calls run under torch.no_grad().
+
+    On a CUDA device every padded input shape gets one CUDA graph, captured
+    at its first call after WARMUP_FORWARDS eager forwards on a side
+    stream; each call copies its input into the graph's static buffer,
+    replays the graph and copies the output to the host.  The graphs share
+    one memory pool: they replay one after another, and each replay's
+    output is copied out before the next.  The model's weights are read
+    where they lie on every replay, so a write to them in place is seen by
+    the next call.  A capture that fails raises."""
 
     def __init__(self, model: Callable[[torch.Tensor], torch.Tensor],
                  device, scale: int = 1, tile: int = 0,
@@ -50,12 +79,41 @@ class Restorer:
         self.tile_overlap = tile_overlap
         self.tile_batch = tile_batch
         self.shape_bucket = shape_bucket
+        # padded input shape -> its captured forward (CUDA only)
+        self.graphs: Dict[tuple, _Graph] = {}
+        self._pool = None
+
+    def _capture(self, x: torch.Tensor) -> _Graph:
+        """Warm up on a side stream, then capture one forward on x's shape."""
+        static_in = torch.empty(x.shape, dtype=torch.float32, device=self.device)
+        static_in.copy_(x)
+        with torch.cuda.device(self.device), torch.no_grad():
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_FORWARDS):
+                    self.model(static_in)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                static_out = self.model(static_in)
+        return _Graph(static_in, graph, static_out)
 
     def _run(self, img: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
-        with torch.no_grad():
-            y = self.model(x.to(self.device))
-            return y.float().cpu().numpy()
+        if self.device.type != "cuda":
+            with torch.no_grad():
+                return self.model(x.to(self.device)).float().cpu().numpy()
+        g = self.graphs.get(tuple(x.shape))
+        if g is None:
+            g = self.graphs[tuple(x.shape)] = self._capture(x)
+        else:
+            g.static_in.copy_(x)
+        with torch.cuda.device(self.device):
+            g.graph.replay()
+        return g.static_out.float().cpu().numpy()
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
         """img: (B, H, W, C) float32 in [0, 1] -> (B, H*scale, W*scale, C_out)."""

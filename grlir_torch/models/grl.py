@@ -232,6 +232,7 @@ class GRL(nn.Module):
         else:
             raise ValueError(f"unknown upsampler {cfg.upsampler!r}")
         self._geometry: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self._mean: Dict[tuple, torch.Tensor] = {}
 
     def use_kernels(self, x: torch.Tensor) -> bool:
         """Resolve cfg.kernels for this call (see GRLConfig)."""
@@ -247,6 +248,19 @@ class GRL(nn.Module):
                 self.cfg.geometry_config, tuple(x_size), device)
         return self._geometry[key]
 
+    def mean(self, dtype, device) -> torch.Tensor:
+        """The input mean subtracted before the body (RGB_MEAN for 3
+        channels, else 0), cached per type and device as the geometry is:
+        built on the first forward, so a captured forward copies nothing
+        from the host."""
+        key = (dtype, str(device))
+        if key not in self._mean:
+            if self.cfg.in_channels == 3:
+                self._mean[key] = torch.tensor(RGB_MEAN, dtype=dtype, device=device)
+            else:
+                self._mean[key] = torch.zeros(1, dtype=dtype, device=device)
+        return self._mean[key]
+
     def forward_features(self, x, geometry, dt, kernels):
         x = layer_norm(self.norm_start, x)
         for stage in self.layers:
@@ -259,10 +273,7 @@ class GRL(nn.Module):
         kernels = self.use_kernels(x)
         _, H, W, _ = x.shape
         x = pad_to_multiple(x, cfg.pad_size)
-        if cfg.in_channels == 3:
-            mean = torch.tensor(RGB_MEAN, dtype=x.dtype, device=x.device)
-        else:
-            mean = torch.zeros(1, dtype=x.dtype, device=x.device)
+        mean = self.mean(x.dtype, x.device)
         x = x - mean
         geometry = self.geometry(x.shape[1:3], x.device)
 

@@ -33,6 +33,7 @@ import torch
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.block_attn import (
+    COUNTED,
     _band_mask,
     _check_inference,
     _ptr,
@@ -291,3 +292,4 @@ def _i32(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 KERNELS = (fused_window_attention_qkv, fused_cosine_attention,
            fused_cosine_attention_packed)
+COUNTED.extend(KERNELS)

@@ -828,13 +828,19 @@ ROUTED = (window_half, window_half_large, stripe_half, stripe_a2w_large,
           stripe_w2a_large)
 
 
+# every kernel wrapper of the package that counts its launches: B1-B4
+# here; B5 (ops/flash_attention.py) and B6/B7 (ops/attention.py) add
+# theirs when imported, as they import this module
+COUNTED = list(KERNELS)
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count, the counts by route of B1-B4 and
-    unrouted_halves to 0."""
+    """Set the launch count of every kernel in COUNTED (a kernel of a
+    module not imported yet counts 0 already), the counts by route of
+    B1-B5 and unrouted_halves to 0."""
     global unrouted_halves
-    for k in KERNELS:
+    for k in COUNTED:
         k.launches = 0
-    for k in ROUTED:
-        for route in k.route_launches:
+        for route in getattr(k, "route_launches", ()):
             k.route_launches[route] = 0
     unrouted_halves = 0

@@ -28,6 +28,7 @@ import torch
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.block_attn import (
+    COUNTED,
     MAX_D,
     _band_mask,
     _check_inference,
@@ -123,3 +124,4 @@ flash_rect_attention.route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 # each with a tensor-core and a CUDA-core route, as `block_attn.ROUTED`
 KERNELS = (flash_rect_attention,)
+COUNTED.extend(KERNELS)

@@ -1,5 +1,5 @@
 """Batch inference CLI on PyTorch: restore a folder of images with a
-reference torch checkpoint.
+reference torch checkpoint or a flax `.msgpack` parameter file.
 
     python -m grlir_torch.serve --input lr_dir --output out_dir \
         --checkpoint sr_grl_small_c3x4.ckpt --model small --task sr --scale 4 \
@@ -7,7 +7,10 @@ reference torch checkpoint.
         [--engine v3|fused|window|stripe] [--kernels auto|on|off] [--device cuda]
 
 Loads reference .ckpt/.pth files (Lightning `model.`/`model_g.` prefixes or
-a raw state_dict) with strict key matching.
+a raw state_dict), and the `.msgpack` files of `python -m grlir.utils.convert`
+(read without the msgpack package), with strict key matching.  grlir's
+orbax checkpoint directories wait for the port's own checkpoints (ROADMAP
+A7).
 
 `--engine` picks the attention engine (`GRLConfig.engine`) and `--kernels`
 whether its CUDA kernels run.  The JAX CLI's `--pallas` choices map so:
@@ -30,16 +33,31 @@ from grlir_torch.engines.inference import Restorer, reflect_pad_to
 from grlir_torch.models import zoo
 from grlir_torch.models.blocks import ENGINE_HALVES
 from grlir_torch.models.grl import GRL
-from grlir_torch.utils.convert import strip_prefix
+from grlir_torch.utils import msgpack_params
+from grlir_torch.utils.convert import jax_params_to_state_dict, strip_prefix
+from grlir_torch.utils.image import to_uint8
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KERNELS = {"auto": "auto", "on": True, "off": False}
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference torch checkpoint into `model` (strict)."""
-    ckpt = torch.load(osp.expanduser(path), map_location="cpu",
-                      weights_only=True)
+    """Load a reference torch checkpoint or a flax .msgpack parameter file
+    into `model` (strict); an orbax directory raises."""
+    path = osp.expanduser(path)
+    if osp.isdir(path):
+        raise NotImplementedError(
+            f"{path}: orbax checkpoint directories are not read by the port "
+            "yet (ROADMAP A7); convert the released .ckpt with "
+            "`python -m grlir.utils.convert` to a .msgpack file")
+    if path.endswith(".msgpack"):
+        sd = jax_params_to_state_dict(msgpack_params.load(path))
+        try:
+            model.load_state_dict(sd, strict=True)
+        except RuntimeError as e:
+            raise KeyError(f"{path} does not match the model:\n{e}") from e
+        return
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
     errors = []
     for prefix in ("model.", "model_g.", ""):
@@ -52,10 +70,6 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
         except RuntimeError as e:
             errors.append(f"prefix {prefix!r}: {e}")
     raise KeyError(f"{path} does not match the model:\n" + "\n".join(errors))
-
-
-def to_uint8(img: np.ndarray) -> np.ndarray:
-    return np.uint8(np.round(np.clip(img, 0.0, 1.0) * 255.0))
 
 
 def main(argv=None):

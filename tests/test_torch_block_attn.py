@@ -572,3 +572,21 @@ def test_reset_launches_clears_the_routes():
     tba.reset_launches()
     assert all(k.route_launches == {"tensor_core": 0, "cuda_core": 0}
                for k in tba.ROUTED)
+
+
+def test_reset_launches_clears_every_kernel():
+    """One call resets all nine counters: B1-B4 and their routes, B5 and
+    its routes, B6/B7, and unrouted_halves."""
+    from grlir_torch.ops import attention as tatt
+    from grlir_torch.ops import flash_attention as tfa
+
+    kernels = tba.KERNELS + tfa.KERNELS + tatt.KERNELS
+    assert len(kernels) == 9 and set(kernels) == set(tba.COUNTED)
+    for k in kernels:
+        k.launches += 2
+    tfa.flash_rect_attention.route_launches["tensor_core"] += 1
+    tba.unrouted_halves += 1
+    tba.reset_launches()
+    assert [k.launches for k in kernels] == [0] * 9
+    assert tfa.flash_rect_attention.route_launches == {"tensor_core": 0, "cuda_core": 0}
+    assert tba.unrouted_halves == 0

@@ -20,7 +20,9 @@ also at head dims up to 64.  B3's bf16 route is held to the stage gates of
 `grlir_torch.b3_spread` (its attention against the plain attention on its
 own q, k, v; its q, k, v bf16 flips against the plain path's, both counted
 against a float64-summed projection; the share of outputs off by more
-than 1e-2 end to end), also over the twelve input draws of `b3_spread`.
+than 1e-2 end to end), also over the twelve input draws of `b3_spread`;
+B5's bf16 route is held to the same gates over the twelve draws of
+`b5_spread` at GRL-base's three steps (ROADMAP C5).
 The fused engines' kernels run at GRL-S's and GRL-base's
 shapes and at ragged ones: B5 (`flash_rect_attention`, bf16 on tensor
 cores, fp32 on CUDA cores, counted by route), B6
@@ -35,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from grlir_torch import b3_spread
+from grlir_torch import b3_spread, b5_spread
 from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as tba
 from grlir_torch.ops import flash_attention as tfa
@@ -537,6 +539,26 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, with_bands):
     with torch.no_grad():
         want = tfa.flash_rect_attention(*args, kernels=False)
     _assert_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", b5_spread.SEEDS)
+def test_flash_grlbase_bf16_draws(cuda, seed):
+    """B5's bf16 route at GRL-base x4 256^2's three steps (window 32 shifted
+    by 16, the 64x64 stripes' a2w and w2a at df 2), on the twelve input
+    draws of `b5_spread`: every step within the stage gates (ROADMAP C5;
+    a flat end-to-end bound fails on half the draws, as B3's did in C4).
+    The gated y is the wrapper's."""
+    for step, args in b5_spread.draw(seed, cuda).items():
+        routes = _routes([tfa.flash_rect_attention])
+        got = _launched(tfa.flash_rect_attention, lambda: tfa.flash_rect_attention(*args))
+        _expect_routes([tfa.flash_rect_attention], routes, torch.bfloat16)
+        with torch.no_grad():
+            want = tfa.flash_rect_attention(*args, kernels=False)
+        st = b5_spread.b5_stage_check(*args)
+        assert torch.equal(st["y"], got.float()), step
+        assert torch.equal(st["y_plain"], want.float()), step
+        assert not b3_spread.stage_failures(st), (step, b3_spread.stage_line(st))
 
 
 # (N, heads, d): GRL-S's windows (8x8, 2 heads of 32), 16x16 windows at

@@ -11,7 +11,8 @@ PROBE = """
 import sys
 import grlir_torch, grlir_torch.models.grl, grlir_torch.ops.block_attn
 import grlir_torch.engines.inference, grlir_torch.serve
-print(sorted(m for m in ("jax", "flax", "yaml", "cv2") if m in sys.modules))
+import grlir_torch.engines.validate, grlir_torch.utils.msgpack_params
+print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack") if m in sys.modules))
 """
 
 # every module of grlir_torch, and chip_smoke (whose import must not run
@@ -26,7 +27,7 @@ import chip_smoke
 assert callable(chip_smoke.main)
 print(len(names))
 print(sorted(m for m in sys.modules if m == "grlir" or m.startswith("grlir.")
-             or m.split(".")[0] in ("jax", "flax", "yaml", "cv2")))
+             or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack")))
 """
 
 
