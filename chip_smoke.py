@@ -72,6 +72,24 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      copy): the two within 0.01 dB and 1e-4 of SSIM, and the card's metrics
      of the first batch within 1e-3 dB and 1e-5 of the same restorations
      scored on the CPU.
+  8. the trainer (ROADMAP A7): `grlir_torch.train.main` on a synthetic data
+     root (16 structured 320^2 GT PNGs with x4 LR, two val images) with
+     experiment=sr/grl_p256 at GRL-S width, bs8, bf16, kernels on (v3): 3
+     steps, then a resume to 6 (the saved optimizer state and LR checked),
+     validation and checkpoints at 3 and 6, results.csv, and the final
+     checkpoint served through `grlir_torch.serve` from a PNG file; launch
+     counts reset just before the CLI run and read just after (B3, B4a and
+     B4b, the routes the recipe's window 32 and 64x64 stripes take, must
+     launch under grad); the gates of `grlir_torch.train_cells` (fp32 one
+     step, kernels on vs off: loss within 1e-5 relative, gradients within
+     1e-3 max|g| + 1e-7; bf16 ten steps of cells a and b: finite losses
+     within 2e-2 of kernels off at every step, falling in both modes; a
+     Restorer's replay after optimizer steps equal to eager); then each
+     cell's train step timed kernels off and on (20 steps after 3, CUDA
+     events: median, min-max, samples/s, peak memory, device-busy share,
+     launches a step by kernel and route).  The JSON line adds
+     `train_launches` (the CLI run) and `train_step_launches` (one step of
+     cell a, the recipe, and b, zoo.GRL_SMALL's geometry) to every kernel.
   On the card the Restorer runs every served request on a CUDA graph, so
   the serve phases count the launches of the traced forwards (each graph's
   warm-up forwards and capture); its replays launch without counting.
@@ -356,6 +374,250 @@ class Phase:
         torch.cuda.synchronize()
         if exc[0] is None:
             print(f"[wall] {self.name}: {time.perf_counter() - self.t0:.1f} s")
+
+
+TRAIN_WARMUP, TRAIN_RUNS = 3, 20     # train-step timing: warm-up, timed steps
+TRAIN_GT_HW, TRAIN_IMAGES = 320, 16  # the trainer's synthetic data root
+
+
+def profile_step(fn, top: int = 6):
+    """fn() once under torch.profiler: (device ms of every CUDA kernel and
+    copy, the `top` largest as (ms, launches, name)).  The optimizer's
+    `record_function` range also shows as a device row, over kernels
+    already counted: user annotations are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grlir_torch.profile_b4 import device_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)):
+            ms, n = rows.get(e.name, (0.0, 0))
+            rows[e.name] = (ms + device_us(e) / 1e3, n + 1)
+    largest = sorted(((ms, n, name) for name, (ms, n) in rows.items()), reverse=True)
+    return sum(ms for ms, _ in rows.values()), largest[:top]
+
+
+def write_train_root(root) -> str:
+    """A synthetic data root for `grlir_torch.train`: TRAIN_IMAGES
+    structured GT PNGs with their x4 LR (the port's imresize), a DIV2K
+    x4 manifest, and a two-image Set5-style x4 val set; returns the first
+    val LR file."""
+    import os
+
+    from grlir_torch.utils.image import to_uint8
+    from grlir_torch.utils.imageio import imwrite
+    from grlir_torch.utils.matlab import imresize
+
+    def put(rel, img):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        imwrite(path, to_uint8(img))
+
+    def manifest(rel, entries):
+        path = os.path.join(root, "image_info", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(entries, f)
+
+    train, val = [], []
+    for i, gt in enumerate(val_images(9, TRAIN_IMAGES, TRAIN_GT_HW)):
+        put(f"DIV2K/train/{i:04d}.png", gt)
+        put(f"DIV2K/train_x4/{i:04d}.png", imresize(gt, 0.25))
+        train.append({"path_gt": f"train/{i:04d}.png", "path_lq": f"train_x4/{i:04d}.png"})
+    for i, gt in enumerate(val_images(10, 2, 256)):
+        put(f"test_set/Set5/v{i}.png", gt)
+        put(f"test_set/Set5/v{i}_x4.png", imresize(gt, 0.25))
+        val.append({"path_gt": f"Set5/v{i}.png", "path_lq": f"Set5/v{i}_x4.png"})
+    manifest("DIV2K/train_X4.json", train)
+    manifest("Set5/test_X4.json", val)
+    return os.path.join(root, "test_set", "Set5", "v0_x4.png")
+
+
+def train_phase(dev, smi, counts, routes):
+    """The trainer (ROADMAP A7) on the card; returns the launches of the
+    CLI run (counts set to 0 just before, read just after) and those of one
+    kernels-on train step in cells a and b."""
+    import copy
+    import os
+    import tempfile
+
+    from grlir_torch import serve
+    from grlir_torch import train_cells as tc
+    from grlir_torch.engines.inference import Restorer
+    from grlir_torch.engines.train import make_train_step
+    from grlir_torch.models import zoo
+    from grlir_torch.models.grl import GRL
+    from grlir_torch.ops import block_attn as ba
+    from grlir_torch.train import main as train_main
+    from grlir_torch.utils import checkpoint as ckpt_mod
+    from grlir_torch.utils.image import to_uint8
+    from grlir_torch.utils.imageio import imread
+
+    cells = {c: tc.cell_config(c) for c in "ab"}
+    for c, cfg in cells.items():
+        print(f"[train] cell {c}: window {cfg.window_size}, stripes {cfg.stripe_size} groups "
+              f"{cfg.stripe_groups}, df {cfg.anchor_window_down_factor}, bs {tc.BATCH}, LR "
+              f"{tc.LR_HW}^2 x{tc.SCALE}: routes at {tc.LR_HW}^2 {tc.admitted(cfg)}")
+
+    # ---- the CLI: 3 steps, then a resume to 6, on a synthetic data root
+    tmp = tempfile.TemporaryDirectory()
+    saved_env = {k: os.environ.get(k) for k in ("GRLIR_DATA_ROOT", "GRLIR_CACHE_DIR")}
+    os.environ["GRLIR_DATA_ROOT"] = os.path.join(tmp.name, "data")
+    os.environ["GRLIR_CACHE_DIR"] = os.path.join(tmp.name, "cache")
+    restore, seen = ckpt_mod.CheckpointManager.restore, {}
+
+    def spy(self, model, optimizer=None, scheduler=None, step=None):
+        got = restore(self, model, optimizer, scheduler, step)
+        seen.update(step=got, opt=copy.deepcopy(optimizer.state_dict()),
+                    lr=optimizer.param_groups[0]["lr"], last_epoch=scheduler.last_epoch)
+        return got
+
+    try:
+        val_png = write_train_root(os.environ["GRLIR_DATA_ROOT"])
+        out = os.path.join(tmp.name, "out")
+        # experiment=sr/grl_p256's own defaults select grl_tiny after the
+        # CLI's model=grl/grl_small (grlir composes so); GRL-S's width and
+        # tail are set explicitly
+        args = ["experiment=sr/grl_p256", "model=grl/grl_small", "model.name=grl_small",
+                "model.embed_dim=128", "model.upsampler=pixelshuffle", "batch_size=8",
+                "dtype=bfloat16", "model.use_pallas_attention=v3",
+                "trainer.val_check_interval=3", "trainer.log_every_n_steps=1",
+                "data_module.train.dataset=div2k", "data_module.val.dataset=set5",
+                f"io.base_output_path={out}", "tag=chip_train", "num_workers=4"]
+        ckpt_mod.CheckpointManager.restore = spy
+        ba.reset_launches()
+        t0 = time.perf_counter()
+        train_main(args + ["trainer.max_steps=3"])
+        t1 = time.perf_counter()
+        train_main(args + ["trainer.max_steps=6"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cli_counts, cli_routes = counts(), routes()
+        run = os.path.join(out, "chip_train", "version_0")
+        ckdir = os.path.join(run, "checkpoints")
+        saved = torch.load(os.path.join(ckdir, "step_3", "checkpoint.pt"),
+                           map_location="cpu", weights_only=True)
+        same_opt = seen.get("opt", {}).get("state", {}).keys() == saved["optimizer"]["state"].keys()
+        for i, st in saved["optimizer"]["state"].items():
+            for k, v in st.items():
+                same_opt &= torch.equal(torch.as_tensor(seen["opt"]["state"][i][k]).cpu(),
+                                        torch.as_tensor(v))
+        with open(os.path.join(run, "results.csv")) as f:
+            steps = [row.split(",")[2] for row in f.read().splitlines()[1:]]
+        print(f"[train] CLI {' '.join(args)}: 3 steps in {t1 - t0:.1f} s, resumed to 6 in "
+              f"{t2 - t1:.1f} s (build, data, steps, validation at 3 and 6); resumed at step "
+              f"{seen.get('step')} with the saved optimizer state {same_opt}, LR {seen.get('lr')} "
+              f"(schedule(3) 1e-4), scheduler step {seen.get('last_epoch')}; results.csv steps "
+              f"{steps}; checkpoints {sorted(os.listdir(ckdir))}; launches "
+              f"{ {k: n for k, n in cli_counts.items() if n} }, routes "
+              f"{ {k: r for k, r in cli_routes.items() if any(r.values())} }, unrouted halves "
+              f"{ba.unrouted_halves}")
+        check(seen.get("step") == 3 and same_opt and seen.get("lr") == 1e-4
+              and seen.get("last_epoch") == 3, "train CLI: resume at step 3")
+        check(steps == ["3", "6"], f"train CLI: results.csv steps {steps}")
+        check(all(cli_counts[k] > 0 for k in tc.admitted(cells["a"])) and ba.unrouted_halves == 0,
+              f"train CLI: launches {cli_counts}")
+
+        # the final checkpoint served through the file path
+        served_dir = os.path.join(tmp.name, "served")
+        serve.main(["--input", val_png, "--output", served_dir, "--checkpoint", ckdir,
+                    "--model", "small", "--scale", "4", "--dtype", "bfloat16"])
+        got = imread(os.path.join(served_dir, "v0_x4.png"))
+        ref = GRL(zoo.make_config("small", dtype=torch.bfloat16))
+        serve.load_checkpoint(ref, ckdir)
+        ref = ref.eval().to(dev)
+        want = to_uint8(Restorer(ref, dev, scale=4, shape_bucket=64)(
+            imread(val_png)[None].astype(np.float32) / 255.0)[0])
+        print(f"[train] serve --checkpoint {os.path.basename(ckdir)}/ (latest step 6) on "
+              f"{os.path.basename(val_png)}: {got.shape}, equal to the in-process restore "
+              f"{np.array_equal(got, want)}")
+        check(got.shape == (256, 256, 3) and np.array_equal(got, want), "train: serve")
+        del ref
+    finally:
+        ckpt_mod.CheckpointManager.restore = restore
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+
+    # ---- the gates, fixed before any card run (PERF.md)
+    t0 = time.perf_counter()
+    rel, worst, where = tc.gate_fp32(dev)
+    print(f"[train] gate fp32, cell a, one step, kernels on vs off: loss rel diff {rel:.3e} "
+          f"(max {tc.FP32_LOSS_REL}); worst gradient max|diff| / (1e-3 max|g| + 1e-7) "
+          f"{worst:.3e} at {where} (max 1)")
+    check(rel <= tc.FP32_LOSS_REL and worst <= 1.0, "train gate fp32")
+    for c in "ab":
+        losses, rels = tc.gate_bf16(c, dev)
+        print(f"[train] gate bf16, cell {c}, {tc.GATE_STEPS} steps: losses kernels on "
+              f"{[round(v, 5) for v in losses[True]]}, off {[round(v, 5) for v in losses[False]]}; "
+              f"per-step rel diff max {max(rels):.3e} (max {tc.BF16_LOSS_REL})")
+        check(tc.bf16_gate_ok(losses, rels), f"train gate bf16 cell {c}")
+        err, graphs = tc.replay_after_steps(c, dev)
+        print(f"[train] cell {c}: Restorer replay after 3 optimizer steps vs eager max|diff| "
+              f"{err:.3e} ({graphs} graph)")
+        check(err == 0.0 and graphs == 1, f"train replay after steps, cell {c}")
+
+    print(f"[train] gates: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the two cells timed, kernels off and on
+    t0 = time.perf_counter()
+    per_step = {}
+    for c, cfg in cells.items():
+        for kernels in (False, True):
+            state = tc.make_state(replace(cfg, kernels=kernels), dev, seed=0)
+            data = tc.batches(4, dev, seed=3)
+            step = make_train_step(tc.LOSS)
+            for i in range(TRAIN_WARMUP):
+                step(state, data[i % 4])
+            torch.cuda.synchronize()
+            ba.reset_launches()
+            step(state, data[0])
+            torch.cuda.synchronize()
+            launched, by_route, unrouted = counts(), routes(), ba.unrouted_halves
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(TRAIN_RUNS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                step(state, data[i % 4])
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            dev_ms, largest = profile_step(lambda: step(state, data[0]))
+            med = statistics.median(times)
+            print(f"[time] train step cell {c} bf16 bs{tc.BATCH} LR {tc.LR_HW}^2, kernels "
+                  f"{'on' if kernels else 'off'}: {spread(times)} a step over {TRAIN_RUNS} steps "
+                  f"after {TRAIN_WARMUP}, {tc.BATCH / (med / 1e3):.2f} samples/s, peak "
+                  f"{peak:.2f} GiB, device-busy {100 * dev_ms / med:.1f}% ({dev_ms:.3f} ms of "
+                  f"kernels); launches a step "
+                  f"{ {k: n for k, n in launched.items() if n} }, routes "
+                  f"{ {k: r for k, r in by_route.items() if any(r.values())} }, unrouted "
+                  f"halves {unrouted} [{smi}]")
+            print(f"[train] cell {c} kernels {'on' if kernels else 'off'}: largest device "
+                  f"time in one profiled step: " + "; ".join(
+                      f"{ms:.2f} ms x{n} {name[:70]}" for ms, n, name in largest))
+            if kernels:
+                want = tc.admitted(cfg)
+                check(all(launched[k] > 0 for k in want)
+                      and all(n == 0 for k, n in launched.items() if k not in want),
+                      f"train cell {c}: kernels-on launches {launched}, routes admit {want}")
+                per_step[c] = launched
+            else:
+                check(not any(launched.values()), f"train cell {c}: kernels-off launches {launched}")
+            del state, data
+    print(f"[train] timing: {time.perf_counter() - t0:.1f} s")
+    check(any(n > 0 for c in per_step for n in per_step[c].values()),
+          "train: no B1-B4 launch under grad")
+    return cli_counts, per_step
 
 
 def main() -> int:
@@ -1635,9 +1897,17 @@ def main() -> int:
                   for k, v in diff.items() if k != "niqe"),
               "validate: kernels vs kernels=False")
 
+    # 8. the trainer (ROADMAP A7): the CLI trains, validates, checkpoints,
+    # resumes and serves; the train step's gates and its two cells timed
+    with Phase("train"):
+        train_cli, train_step = train_phase(dev, smi, counts, routes)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
-         "launches": served[k], "max_abs_err": max_err[k], **timing[k]}
+         "launches": served[k], "train_launches": train_cli.get(k, 0),
+         "train_step_launches": {c: n.get(k, 0) for c, n in train_step.items()},
+         "max_abs_err": max_err[k],
+         **timing[k]}
         for k in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

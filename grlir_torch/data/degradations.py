@@ -11,13 +11,20 @@ and kernel deblurring (db), the counterpart of the device side of
     asset), flipped so that the correlation is a true convolution.
 
 NHWC tensors in and out; the convolutions run in the input's type with
-TF32 off.  The data-pipeline side (training and validation noise, JPEG,
-mosaicking) comes with the training slice (ROADMAP A7).
+TF32 off.
+
+The data pipeline's side, on numpy: training and validation noise (the
+validation noise seeded by sha256 of the file's stem and drawn in CHW
+order, as grlir draws it), the noise-level map and the RGGB mosaic.  JPEG
+compression needs an encoder, which the port does not have without cv2
+(ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import os
+from hashlib import sha256
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,3 +129,54 @@ def db_forward(noise: torch.Tensor, target: torch.Tensor, kernel: np.ndarray,
         lq = lq[:, bkh:-bkh, bkw:-bkw, :]
         target = target[:, bkh:-bkh, bkw:-bkw, :]
     return lq, target
+
+
+# ---------------------------------------------------------------- host side
+
+def train_noise(rng: np.random.Generator, shape_hwc, sigma: float = 0.0,
+                sigma_range: Sequence[float] = ()) -> Tuple[np.ndarray, float]:
+    """Fresh AWGN for a training sample; sigma in [0, 255] units (drawn
+    from sigma_range when it is given)."""
+    if len(sigma_range) > 0:
+        sigma = rng.uniform(*sigma_range)
+    s = sigma / 255.0
+    return (rng.standard_normal(shape_hwc) * s).astype(np.float32), s
+
+
+def val_noise(filename: str, shape_hwc, sigma: float) -> np.ndarray:
+    """Deterministic validation noise: a RandomState seeded by sha256 of the
+    file's stem (up to its first "_"), drawn in CHW order."""
+    h, w, c = shape_hwc
+    img_name = os.path.basename(filename).split("_")[0]
+    seed = np.frombuffer(sha256(img_name.encode("utf-8")).digest(), dtype="uint32")
+    rstate = np.random.RandomState(seed)
+    noise = rstate.normal(0, sigma / 255.0, (c, h, w))
+    return noise.transpose(1, 2, 0).astype(np.float32)
+
+
+def noise_level_map(shape_hw, level: float) -> np.ndarray:
+    """A constant noise-level channel, (H, W, 1)."""
+    return np.full((*shape_hw, 1), level, np.float32)
+
+
+def jpeg_compress(img_uint8: np.ndarray, quality_factor: int) -> np.ndarray:
+    raise NotImplementedError(
+        "JPEG compression needs a JPEG encoder, which the port does not have "
+        "without cv2 (ROADMAP A10)")
+
+
+def mosaic_cfa_bayer(rgb_uint8: np.ndarray):
+    """RGGB mosaic of uint8 RGB: (CFA (H, W), CFA4 (H/2, W/2, 4) packed)."""
+    H, W = rgb_uint8.shape[:2]
+    mask = np.zeros((H, W, 3), bool)
+    mask[0::2, 0::2, 0] = True  # R
+    mask[0::2, 1::2, 1] = True  # G
+    mask[1::2, 0::2, 1] = True  # G
+    mask[1::2, 1::2, 2] = True  # B
+    cfa = (mask * rgb_uint8).sum(2).astype(np.uint8)
+    cfa4 = np.zeros((H // 2, W // 2, 4), np.uint8)
+    cfa4[:, :, 0] = cfa[0::2, 0::2]
+    cfa4[:, :, 1] = cfa[0::2, 1::2]
+    cfa4[:, :, 2] = cfa[1::2, 0::2]
+    cfa4[:, :, 3] = cfa[1::2, 1::2]
+    return cfa, cfa4

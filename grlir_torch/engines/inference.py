@@ -41,6 +41,15 @@ def reflect_pad_to(img: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
 WARMUP_FORWARDS = 2
 
 
+def _release_cuda_generator() -> None:
+    """A capture that fails ends before it hands the current device's
+    default CUDA generator back, and every later draw from it would raise
+    ("Offset increment outside graph capture"): give the generator a fresh
+    state with its seed and offset."""
+    gen = torch.cuda.default_generators[torch.cuda.current_device()]
+    gen.graphsafe_set_state(gen.clone_state())
+
+
 class _Graph:
     """One captured forward: its static input buffer, the graph, and the
     output tensor each replay rewrites."""
@@ -97,8 +106,12 @@ class Restorer:
                     self.model(static_in)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
-                static_out = self.model(static_in)
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    static_out = self.model(static_in)
+            except RuntimeError:
+                _release_cuda_generator()
+                raise
         return _Graph(static_in, graph, static_out)
 
     def _run(self, img: np.ndarray) -> np.ndarray:

@@ -22,6 +22,7 @@ from grlir_torch.data import degradations as D
 from grlir_torch.metrics import basic as MB
 from grlir_torch.metrics.collect import MetricAccumulator
 from grlir_torch.utils.image import shave, tensor_round, to_uint8
+from grlir_torch.utils.imageio import imwrite
 
 METRIC_FNS: Dict[str, Callable] = {
     "psnr": MB.psnr,
@@ -135,9 +136,7 @@ def validate(
 
 
 def _save_images(save_dir, task, filenames, lq, restored, target):
-    """LQ/HQ/GT dumps, one directory each."""
-    import cv2
-
+    """LQ/HQ/GT dumps as PNG, one directory each."""
     for sub in ("LQ", "HQ", "GT"):
         os.makedirs(osp.join(save_dir, sub), exist_ok=True)
     for i, name in enumerate(filenames):
@@ -146,10 +145,7 @@ def _save_images(save_dir, task, filenames, lq, restored, target):
         if target is not None:  # GT-free sets have nothing to dump
             subs.append(("GT", target[i]))
         for sub, img in subs:
-            arr = to_uint8(img)
-            if arr.shape[-1] == 3:
-                arr = cv2.cvtColor(arr, cv2.COLOR_RGB2BGR)
-            cv2.imwrite(osp.join(save_dir, sub, base), arr)
+            imwrite(osp.join(save_dir, sub, base), to_uint8(img))
 
 
 def write_results_csv(path: str, tag: str, val_set: str,

@@ -12,7 +12,7 @@ and tanh-approximate in bf16 (grlir/models/blocks.py:156-194).
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -402,18 +402,33 @@ class MixedAttention(nn.Module):
         return linear(self.proj, torch.cat([x_win, x_str], dim=-1), dt)
 
 
+def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Stochastic depth on the batch axis (timm DropPath semantics, as
+    grlir/models/blocks.py:197-205): samples whose mask is set are scaled by
+    1 / (1 - rate), the others zeroed.  keep: (B,) bool, drawn by the
+    caller, so that a recomputed forward (remat) applies the same masks."""
+    k = keep.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(k, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 class EfficientMixAttnTransformerBlock(nn.Module):
     """GRL block: mixed attention and MLP with post-norm residuals, plus the
     CAB local branch beside the attention when local_connection is set
     (key conv).  stripe_type "W" (vertical stripes) reverses the stripe size
-    and groups and reads the `sv` geometry."""
+    and groups and reads the `sv` geometry.  In training both residual
+    branches take stochastic depth at drop_path_rate and are scaled by
+    res_scale (grlir/models/blocks.py:1222-1233)."""
 
     def __init__(self, dim: int, heads_w: int, heads_s: int, window: int,
                  window_shift: bool, stripe_size, stripe_groups,
                  stripe_type: str, stripe_shift: bool, mlp_ratio: float,
                  df: int, local_connection: bool = False, engine: str = "v3",
+                 drop_path_rate: float = 0.0, res_scale: float = 1.0,
                  device=None):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
+        self.res_scale = res_scale
         self.geometry_key = "sv" if stripe_type == "W" else "sh"
         if stripe_type == "W":
             stripe_size, stripe_groups = stripe_size[::-1], stripe_groups[::-1]
@@ -434,10 +449,19 @@ class EfficientMixAttnTransformerBlock(nn.Module):
             "bands_s": g[f"bands_{s}"], "bands_s_a": g[f"bands_{s}_a"],
         }
 
-    def forward(self, x, geometry, dt, kernels: bool):
+    def forward(self, x, geometry, dt, kernels: bool,
+                keep: Optional[torch.Tensor] = None):
+        """keep: None, or this block's stochastic-depth masks, (2, B) bool,
+        for the attention and the MLP branch (`drop_path`)."""
         tim = self.select_geometry(geometry)
-        branch = layer_norm(self.norm1, self.attn(x, tim, dt, kernels))
+
+        def residual(y, i):
+            if keep is not None and self.drop_path_rate > 0.0:
+                y = drop_path(y, keep[i], self.drop_path_rate)
+            return y if self.res_scale == 1.0 else self.res_scale * y
+
+        branch = residual(layer_norm(self.norm1, self.attn(x, tim, dt, kernels)), 0)
         if self.conv is not None:
             branch = branch + self.conv(x, dt)
         x = x + branch
-        return x + layer_norm(self.norm2, self.mlp(x, dt))
+        return x + residual(layer_norm(self.norm2, self.mlp(x, dt)), 1)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from grlir_torch.models.blocks import (
     ENGINE_HALVES,
@@ -38,10 +39,15 @@ NUM_OUT_FEATS = 64  # channels of the upsampling tails
 class GRLConfig:
     """Static hyperparameters of a GRL network: the fields of
     `grlir.models.grl.GRLConfig` that the zoo's recipes set, with their
-    defaults.  The JAX package's other fields are TPU layout knobs, training
-    options or ablations, fixed here at the recipes' values (qkv bias,
-    linear qkv, one-stage avgpool anchor, 1conv, img_range 1, 64 tail
-    features, no drop path at inference).
+    defaults, and its training fields: img_range (the input scaled by it
+    after the mean is taken off, the output divided by it), drop_path_rate
+    (stochastic depth at np.linspace(0, rate, sum(depths)) over the blocks,
+    in training only), init_method ("r" scales both residual branches by
+    0.1) and remat (each transformer block under
+    torch.utils.checkpoint; remat_policy other than None raises).  The JAX
+    package's other fields are TPU layout knobs or ablations, fixed here at
+    the recipes' values (qkv bias, linear qkv, one-stage avgpool anchor,
+    1conv, 64 tail features).
 
     engine: "v3" | "fused" | "window" | "stripe", the attention engine.
     "v3" runs the whole block-half kernels (B1-B4) where a TPU route takes
@@ -80,9 +86,23 @@ class GRLConfig:
     mlp_ratio: float = 4.0
     anchor_window_down_factor: int = 1
     local_connection: bool = False
+    img_range: float = 1.0
+    drop_path_rate: float = 0.1
+    init_method: str = "n"
+    remat: bool = False
+    remat_policy: Optional[str] = None
     engine: str = "v3"
     kernels: object = "auto"
     dtype: torch.dtype = torch.float32
+
+    @property
+    def res_scale(self) -> float:
+        return 0.1 if self.init_method == "r" else 1.0
+
+    @property
+    def drop_path_rates(self) -> Tuple[float, ...]:
+        """Each block's stochastic-depth rate, in block order."""
+        return tuple(np.linspace(0, self.drop_path_rate, sum(self.depths)).tolist())
 
     @property
     def resolved_out_channels(self) -> int:
@@ -110,6 +130,10 @@ def check_ported(cfg: GRLConfig) -> None:
             "ported yet (ROADMAP A10)")
     if cfg.kernels not in ("auto", True, False):
         raise ValueError(f"kernels must be 'auto', True or False: {cfg.kernels!r}")
+    if cfg.remat_policy is not None:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only full recompute "
+            "(remat_policy None) is ported (ROADMAP A10)")
     if cfg.engine not in ENGINE_HALVES:
         raise ValueError(f"engine must be one of {sorted(ENGINE_HALVES)}: "
                          f"{cfg.engine!r}")
@@ -143,8 +167,9 @@ class TransformerStage(nn.Module):
     blocks, stripe shift on blocks i % 4 in {2, 3} (grlir/models/grl.py:243-276)."""
 
     def __init__(self, cfg: GRLConfig, depth: int, heads_w: int, heads_s: int,
-                 device=None):
+                 drop_path_rates: Tuple[float, ...], device=None):
         super().__init__()
+        self.remat = cfg.remat
         self.blocks = nn.ModuleList([
             EfficientMixAttnTransformerBlock(
                 cfg.embed_dim, heads_w, heads_s, cfg.window_size,
@@ -155,14 +180,22 @@ class TransformerStage(nn.Module):
                 stripe_shift=(i % 4 in (2, 3)) if cfg.stripe_shift else False,
                 mlp_ratio=cfg.mlp_ratio, df=cfg.anchor_window_down_factor,
                 local_connection=cfg.local_connection, engine=cfg.engine,
+                drop_path_rate=drop_path_rates[i], res_scale=cfg.res_scale,
                 device=device)
             for i in range(depth)])
         self.conv = _conv(cfg.embed_dim, cfg.embed_dim, device=device)
 
-    def forward(self, x, geometry, dt, kernels: bool):
+    def forward(self, x, geometry, dt, kernels: bool,
+                keep: Optional[torch.Tensor] = None):
+        """keep: None, or (depth, 2, B) bool stochastic-depth masks."""
         res = x
-        for block in self.blocks:
-            res = block(res, geometry, dt, kernels)
+        for i, block in enumerate(self.blocks):
+            k = None if keep is None else keep[i]
+            if self.remat and torch.is_grad_enabled():
+                res = checkpoint(block, res, geometry, dt, kernels, k,
+                                 use_reentrant=False)
+            else:
+                res = block(res, geometry, dt, kernels, k)
         return conv_nhwc(self.conv, res, dt) + x
 
 
@@ -198,9 +231,12 @@ class GRL(nn.Module):
         out_ch = cfg.resolved_out_channels
         self.conv_first = _conv(cfg.in_channels, dim, device=device)
         self.norm_start = nn.LayerNorm(dim, eps=1e-5, device=device)
+        rates = cfg.drop_path_rates
         self.layers = nn.ModuleList([
             TransformerStage(cfg, depth, cfg.num_heads_window[i],
-                             cfg.num_heads_stripe[i], device=device)
+                             cfg.num_heads_stripe[i],
+                             rates[sum(cfg.depths[:i]):sum(cfg.depths[:i + 1])],
+                             device=device)
             for i, depth in enumerate(cfg.depths)])
         self.norm_end = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.conv_after_body = _conv(dim, dim, device=device)
@@ -261,24 +297,56 @@ class GRL(nn.Module):
                 self._mean[key] = torch.zeros(1, dtype=dtype, device=device)
         return self._mean[key]
 
-    def forward_features(self, x, geometry, dt, kernels):
+    def draw_drop_masks(self, batch: int, generator: Optional[torch.Generator] = None,
+                        device=None) -> torch.Tensor:
+        """(sum(depths), 2, batch) bool stochastic-depth masks, each set with
+        probability 1 - its block's rate, drawn on the CPU from
+        `generator` (torch's default one when None) and moved to
+        `device`."""
+        keep = 1.0 - torch.tensor(self.cfg.drop_path_rates, dtype=torch.float64)
+        u = torch.rand((len(keep), 2, batch), generator=generator,
+                       dtype=torch.float64)
+        masks = u < keep[:, None, None]
+        if device is not None and torch.device(device).type == "cuda":
+            # from pinned memory, so that the copy does not wait for the
+            # work already queued on the device
+            return masks.pin_memory().to(device, non_blocking=True)
+        return masks.to(device)
+
+    def forward_features(self, x, geometry, dt, kernels, keep=None):
         x = layer_norm(self.norm_start, x)
+        start = 0
         for stage in self.layers:
-            x = stage(x, geometry, dt, kernels)
+            n = len(stage.blocks)
+            k = None if keep is None else keep[start:start + n]
+            x = stage(x, geometry, dt, kernels, k)
+            start += n
         return layer_norm(self.norm_end, x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_masks: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: NHWC in [0, 1].  In training with drop_path_rate > 0, the
+        blocks' stochastic-depth masks are `drop_masks` ((sum(depths), 2, B)
+        bool) or, when None, drawn from `generator`; in eval mode no block
+        drops."""
         cfg = self.cfg
         dt = cfg.dtype
         kernels = self.use_kernels(x)
         _, H, W, _ = x.shape
+        keep = None
+        if self.training and cfg.drop_path_rate > 0.0:
+            keep = (drop_masks if drop_masks is not None
+                    else self.draw_drop_masks(x.shape[0], generator, x.device))
+            keep = keep.to(x.device)
         x = pad_to_multiple(x, cfg.pad_size)
         mean = self.mean(x.dtype, x.device)
         x = x - mean
+        if cfg.img_range != 1.0:
+            x = x * cfg.img_range
         geometry = self.geometry(x.shape[1:3], x.device)
 
         def body(feat):
-            y = self.forward_features(feat, geometry, dt, kernels)
+            y = self.forward_features(feat, geometry, dt, kernels, keep)
             return conv_nhwc(self.conv_after_body, y, dt) + feat
 
         if cfg.upsampler == "pixelshuffle":
@@ -301,7 +369,10 @@ class GRL(nn.Module):
                 x = x + conv_nhwc(self.conv_last, res, dt)
             else:
                 x = conv_nhwc(self.conv_last, res, dt)
-        x = x.float() + mean.float()
+        x = x.float()
+        if cfg.img_range != 1.0:
+            x = x / cfg.img_range
+        x = x + mean.float()
         return x[:, :H * cfg.upscale, :W * cfg.upscale, :]
 
 

@@ -7,10 +7,12 @@ reference torch checkpoint or a flax `.msgpack` parameter file.
         [--engine v3|fused|window|stripe] [--kernels auto|on|off] [--device cuda]
 
 Loads reference .ckpt/.pth files (Lightning `model.`/`model_g.` prefixes or
-a raw state_dict), and the `.msgpack` files of `python -m grlir.utils.convert`
-(read without the msgpack package), with strict key matching.  grlir's
-orbax checkpoint directories wait for the port's own checkpoints (ROADMAP
-A7).
+a raw state_dict), the `.msgpack` files of `python -m grlir.utils.convert`
+(read without the msgpack package), and the checkpoint directories of
+`python -m grlir_torch.train` (a run's `checkpoints/` directory, whose latest
+step is read, or one `step_N` directory in it), with strict key matching.
+grlir's orbax checkpoint directories are not read.  Images are read and
+written as PNG by `grlir_torch.utils.imageio`.
 
 `--engine` picks the attention engine (`GRLConfig.engine`) and `--kernels`
 whether its CUDA kernels run.  The JAX CLI's `--pallas` choices map so:
@@ -34,22 +36,32 @@ from grlir_torch.models import zoo
 from grlir_torch.models.blocks import ENGINE_HALVES
 from grlir_torch.models.grl import GRL
 from grlir_torch.utils import msgpack_params
+from grlir_torch.utils.checkpoint import read_step_dir
 from grlir_torch.utils.convert import jax_params_to_state_dict, strip_prefix
 from grlir_torch.utils.image import to_uint8
+from grlir_torch.utils.imageio import imread, imwrite
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KERNELS = {"auto": "auto", "on": True, "off": False}
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference torch checkpoint or a flax .msgpack parameter file
-    into `model` (strict); an orbax directory raises."""
+    """Load a reference torch checkpoint, a flax .msgpack parameter file or
+    a checkpoint directory of the port's trainer into `model` (strict); any
+    other directory (grlir's orbax checkpoints) raises."""
     path = osp.expanduser(path)
     if osp.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read by the port "
-            "yet (ROADMAP A7); convert the released .ckpt with "
-            "`python -m grlir.utils.convert` to a .msgpack file")
+        saved = read_step_dir(path)
+        if saved is None:
+            raise NotImplementedError(
+                f"{path}: orbax checkpoint directories are not read by the port "
+                "yet (ROADMAP A7); convert the released .ckpt with "
+                "`python -m grlir.utils.convert` to a .msgpack file")
+        try:
+            model.load_state_dict(saved["model"], strict=True)
+        except RuntimeError as e:
+            raise KeyError(f"{path} does not match the model:\n{e}") from e
+        return
     if path.endswith(".msgpack"):
         sd = jax_params_to_state_dict(msgpack_params.load(path))
         try:
@@ -99,8 +111,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    import cv2
-
     cfg = zoo.make_config(args.model, task=args.task, upscale=args.scale,
                           dtype=DTYPES[args.dtype], engine=args.engine,
                           kernels=KERNELS[args.kernels])
@@ -125,7 +135,7 @@ def main(argv=None):
 
     groups = {}
     for p in paths:
-        img = cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+        img = imread(p)
         groups.setdefault(bucket_key(img.shape[:2]), []).append((p, img))
 
     step = max(args.batch, 1)
@@ -146,8 +156,8 @@ def main(argv=None):
             dt = time.perf_counter() - t0
             for i, (p, im) in enumerate(chunk):
                 out = outs[i, :im.shape[0] * scale, :im.shape[1] * scale]
-                dst = osp.join(args.output, osp.basename(p))
-                cv2.imwrite(dst, cv2.cvtColor(to_uint8(out), cv2.COLOR_RGB2BGR))
+                dst = osp.join(args.output, osp.splitext(osp.basename(p))[0] + ".png")
+                imwrite(dst, to_uint8(out))
                 print(f"{osp.basename(p)}: {im.shape[1]}x{im.shape[0]} -> "
                       f"{out.shape[1]}x{out.shape[0]} in {dt / len(chunk):.2f}s"
                       f" -> {dst}")

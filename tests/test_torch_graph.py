@@ -116,9 +116,12 @@ def test_profiled_replay_launches_b1_and_b2(cuda):
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda):
     """A forward that cannot be captured (a host sync) raises; no graph is
-    kept, and the card stays usable."""
+    kept, and the card stays usable, its random generator too (ROADMAP
+    C7)."""
     r = Restorer(lambda x: x * float(x.sum()), cuda)
     with pytest.raises(RuntimeError):
         r(_image(5, 8, 8))
     assert not r.graphs
     assert (torch.ones(2, device=cuda) + 1).sum().item() == 4
+    u = torch.rand(1000, device=cuda)
+    assert 0.4 < u.mean().item() < 0.6

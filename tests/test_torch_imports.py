@@ -12,7 +12,9 @@ import sys
 import grlir_torch, grlir_torch.models.grl, grlir_torch.ops.block_attn
 import grlir_torch.engines.inference, grlir_torch.serve
 import grlir_torch.engines.validate, grlir_torch.utils.msgpack_params
-print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack") if m in sys.modules))
+import grlir_torch.train, grlir_torch.configs, grlir_torch.data.module
+print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py", "PIL",
+                         "optax", "orbax") if m in sys.modules))
 """
 
 # every module of grlir_torch, and chip_smoke (whose import must not run
@@ -27,7 +29,8 @@ import chip_smoke
 assert callable(chip_smoke.main)
 print(len(names))
 print(sorted(m for m in sys.modules if m == "grlir" or m.startswith("grlir.")
-             or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack")))
+             or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py",
+                                    "PIL", "optax", "orbax")))
 """
 
 

@@ -10,6 +10,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from grlir.models.grl import GRL as JGRL
 from grlir.models.grl import GRLConfig as JConfig
@@ -93,3 +95,14 @@ def model_pair(upsampler, upscale, seed, jax_kernels=False, trunk=TRUNK,
                            engine=engine)).eval()
     tmodel.load_state_dict(jax_params_to_state_dict(params), strict=True)
     return jmodel, params, tmodel, rng
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread for the test (autouse where a test file
+    imports it): a parallel test run puts several workers on a few cores, and
+    torch's default of a thread a core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
