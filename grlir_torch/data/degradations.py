@@ -15,9 +15,8 @@ TF32 off.
 
 The data pipeline's side, on numpy: training and validation noise (the
 validation noise seeded by sha256 of the file's stem and drawn in CHW
-order, as grlir draws it), the noise-level map and the RGGB mosaic.  JPEG
-compression needs an encoder, which the port does not have without cv2
-(ROADMAP A10).
+order, as grlir draws it), the noise-level map and the RGGB mosaic.  The
+JPEG-artifact data's compression is not ported yet (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -160,9 +159,11 @@ def noise_level_map(shape_hw, level: float) -> np.ndarray:
 
 
 def jpeg_compress(img_uint8: np.ndarray, quality_factor: int) -> np.ndarray:
+    """grlir's JPEG round trip of the JPEG-artifact data: the colour case
+    is `grlir_torch.utils.jpeg.jpeg_roundtrip`; the data path and the
+    grayscale case are not ported yet."""
     raise NotImplementedError(
-        "JPEG compression needs a JPEG encoder, which the port does not have "
-        "without cv2 (ROADMAP A10)")
+        "JPEG artifact-removal data is not ported yet (ROADMAP A10)")
 
 
 def mosaic_cfa_bayer(rgb_uint8: np.ndarray):

@@ -1,7 +1,6 @@
 """Task name -> dataset wiring (the port's copy of `grlir.data.module`):
 one train loader and one val loader per '+'-joined val dataset.  One
-process reads the whole stream (multi-process sharding: ROADMAP A8); the
-BSR pipeline comes with ROADMAP A9."""
+process reads the whole stream (multi-process sharding: ROADMAP A8)."""
 
 from __future__ import annotations
 
@@ -47,9 +46,9 @@ class IRDataModule:
     def __init__(self, cfg: dict, num_train_samples: int = 0, seed: int = 0):
         self.name = cfg["name"]
         if self.name == "bsr":
-            raise NotImplementedError(
-                "the BSR degradation pipeline is not ported yet (ROADMAP A9)")
-        ds_cls = TASK_DATASETS[self.name]
+            from grlir_torch.data.bsr import BSRDataset as ds_cls
+        else:
+            ds_cls = TASK_DATASETS[self.name]
 
         shared = {k: v for k, v in cfg.items()
                   if k not in ("train", "val", "test", "name")}
@@ -61,18 +60,26 @@ class IRDataModule:
         for ds_name in str(val_section.get("dataset", "")).split("+"):
             if not ds_name:
                 continue
-            vc = task_config(self.name, shared, val_section, {"dataset": ds_name})
-            self.val_datasets[ds_name] = ds_cls(vc, VAL)
+            # bsr validates on synthetic SR pairs unless the set is real-world
+            # imagery ("realsr")
+            if self.name == "bsr" and ds_name != "realsr":
+                val_cls, val_task = SRDataset, "sr"
+            else:
+                val_cls, val_task = ds_cls, self.name
+            vc = task_config(val_task, shared, val_section, {"dataset": ds_name})
+            self.val_datasets[ds_name] = val_cls(vc, VAL)
 
         self._cfg = cfg
         self._seed = seed
 
     def train_loader(self, batch_size: int, num_workers: int = 2) -> DataLoader:
+        # the GIL-bound BSR pipeline runs in worker processes, the cheap
+        # decode/crop pipelines on threads (see data/loader.py)
+        mode = (self._cfg.get("worker_mode")
+                or ("process" if self.name == "bsr" else "thread"))
         return DataLoader(self.train_dataset, batch_size, shuffle=True,
                           drop_last=True, num_workers=num_workers,
-                          seed=self._seed,
-                          worker_mode=self._cfg.get("worker_mode") or "thread",
-                          shard=(0, 1))
+                          seed=self._seed, worker_mode=mode, shard=(0, 1))
 
     def val_loaders(self, batch_size: int = 1, num_workers: int = 2):
         return {

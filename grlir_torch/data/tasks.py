@@ -3,9 +3,8 @@
 
 Samples are dicts: indices, img_lq, img_gt, filenames (+ img_lq_l/r for
 dual-pixel).  The draws and the deterministic validation noise are
-grlir's, so one seed gives the same samples.  JPEG data needs an encoder
-the port does not have without cv2, and the USM-sharpened targets come with
-the BSR pipeline: both raise (ROADMAP A10, A9).
+grlir's, so one seed gives the same samples.  JPEG data raises (ROADMAP
+A10).
 """
 
 from __future__ import annotations
@@ -141,8 +140,10 @@ class SRDataset(ImageBaseDataset):
         img_lq, img_gt = self._augment([img_lq, img_gt])
 
         if self.stage == VAL and self.cfg.use_usm:
-            raise NotImplementedError(
-                "USM-sharpened targets come with the BSR pipeline (ROADMAP A9)")
+            from grlir_torch.data.bsr_utils import usm_sharp
+
+            img_gt = (np.clip(usm_sharp(to_float(img_gt)), 0, 1)
+                      * 255.0).round().astype(np.uint8)
 
         # float LR (on-the-fly path) stays float; uint8 scales by 255
         lq = img_lq.astype(np.float32) if img_lq.dtype != np.uint8 else to_float(img_lq)
@@ -189,13 +190,12 @@ def _sr_test_file(dataset: str, scale: int):
 
 
 class JPEGDataset(ImageBaseDataset):
-    """JPEG artifact removal: needs a JPEG encoder, which the port does not
-    have without cv2."""
+    """JPEG artifact removal: not ported yet (its colour and grayscale
+    round trips at the sampled quality factors)."""
 
     def __init__(self, cfg: TaskConfig, stage: str, num_train_samples: int = 0):
         raise NotImplementedError(
-            "JPEG data needs a JPEG encoder, which the port does not have "
-            "without cv2 (ROADMAP A10)")
+            "JPEG artifact-removal data is not ported yet (ROADMAP A10)")
 
     def __getitem__(self, index: int):
         raise NotImplementedError

@@ -5,7 +5,8 @@ Restored images and targets are quantized to the 1/255 grid, shaved by the
 scale for any task containing "sr", scored per image on the device the
 restorer runs on, and accumulated with their sample indices, so that a
 repeated index counts once.  GT-free sets take the no-reference metric
-(NIQE, on the host) only.  LPIPS comes with the GAN slice (ROADMAP A9).
+(NIQE, on the host) only.  LPIPS reads its weights from $GRLIR_LPIPS_NPZ
+(`grlir_torch.metrics.lpips`).
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ def validate(
     gt_free_names = [n for n in metric_names if n in GT_FREE_METRICS]
     acc = MetricAccumulator(list(metric_names))
     device = restorer.device
+    lpips_fn = None     # loaded at its first use
 
     for batch in loader:
         lq, gt = preprocess_val_batch(batch, task, blur_kernel, device)
@@ -106,8 +108,12 @@ def validate(
         values = {}
         for n in names:
             if n == "lpips":
-                raise NotImplementedError(
-                    "lpips is not ported yet (ROADMAP A9: its VGG weights)")
+                if lpips_fn is None:
+                    from grlir_torch.metrics.lpips import lpips_metric_fn
+
+                    lpips_fn = lpips_metric_fn(restored_m.device)
+                values[n] = lpips_fn(restored_m, target_m)
+                continue
             if n not in METRIC_FNS:
                 raise ValueError(
                     f"unknown validation metric {n!r}; available: "

@@ -14,7 +14,8 @@ validates once.
 `device=cuda|cpu` (default cuda) is read off the command line before the
 config is composed.  The run is on the card unless it asks for the CPU; a
 missing card raises.  One process runs the whole batch (data parallelism:
-ROADMAP A8); the GAN engine comes with ROADMAP A9.
+ROADMAP A8).  `engine: base_gan` (real-world SR stage 2) runs
+`grlir_torch.engines.gan_runner.run_gan`.
 """
 
 from __future__ import annotations
@@ -137,7 +138,9 @@ def main(argv=None):
     print(f"[grlir_torch] output: {out_dir} device: {device}")
 
     if cfg.get("engine", {}).get("name") == "base_gan":
-        raise NotImplementedError("the GAN engine is not ported yet (ROADMAP A9)")
+        from grlir_torch.engines.gan_runner import run_gan
+
+        return run_gan(cfg, out_dir, device)
 
     # ---- model
     mcfg = build_model_config(cfg)

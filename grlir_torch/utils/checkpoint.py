@@ -123,7 +123,8 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def _load(self, step: Optional[int]) -> dict:
+    def load(self, step: Optional[int] = None) -> dict:
+        """The saved dict of a step (the latest by default)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
@@ -134,7 +135,7 @@ class CheckpointManager:
                 step: Optional[int] = None) -> int:
         """Load a saved step (the latest by default) into the model and, when
         given, the optimizer and the LR scheduler; returns the step."""
-        saved = self._load(step)
+        saved = self.load(step)
         model.load_state_dict(saved["model"], strict=True)
         if optimizer is not None:
             optimizer.load_state_dict(saved["optimizer"])
@@ -145,7 +146,7 @@ class CheckpointManager:
     def restore_params_only(self, model, step: Optional[int] = None):
         """Load only the model weights of a saved step (a cross-stage
         hand-off), cast to the model's parameter types."""
-        saved = self._load(step)["model"]
+        saved = self.load(step)["model"]
         own = model.state_dict()
         model.load_state_dict({k: v.to(own[k].dtype) for k, v in saved.items()},
                               strict=True)

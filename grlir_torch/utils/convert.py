@@ -119,3 +119,97 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         out[flax_path_to_torch_key(path)] = torch.from_numpy(
             np.ascontiguousarray(a))
     return out
+
+
+# ---- the GAN path's networks: discriminators, VGG19, LPIPS
+
+# leaf of a flax variable tree -> the port's parameter or buffer name
+_VARIABLE_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                    "mean": "running_mean", "var": "running_var", "u": "u"}
+
+
+def jax_variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax variable tree of grlir's discriminators, VGG or LPIPS
+    ({'params': ..., 'spectral': ..., 'batch_stats': ...}, leaves numpy
+    arrays) -> the port module's state dict: module path joined by '.',
+    Conv kernels (kh, kw, I, O) -> (O, I, kh, kw), Dense kernels
+    transposed, BatchNorm scale/mean/var -> weight/running_mean/running_var,
+    the spectral `u` as is, a bare parameter (LPIPS' lin<i>) under its own
+    name."""
+    out = {}
+    for path, value in _flatten(variables):
+        a = np.array(value, dtype=np.float32)
+        body, leaf = path[1:-1], path[-1]
+        if leaf == "kernel":
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+        name = _VARIABLE_LEAVES.get(leaf, leaf)
+        out[".".join((*body, name))] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def convert_unet_discriminator(state_dict: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference's UNetDiscriminatorSN state dict (torch spectral_norm:
+    `weight_orig`, `weight_u`, `weight_v`; conv0/conv9 plain) -> the port's
+    (`weight`, `u`)."""
+    out = {}
+    for k, v in state_dict.items():
+        t = torch.as_tensor(np.asarray(v, np.float32))
+        if k.endswith(".weight_orig"):
+            out[k[: -len("_orig")]] = t
+        elif k.endswith(".weight_u"):
+            out[k[: -len("weight_u")] + "u"] = t
+        elif not k.endswith(".weight_v"):
+            out[k] = t
+    return out
+
+
+def _torchvision_convs(names, features_sd: Mapping) -> Dict[str, torch.Tensor]:
+    """{conv name: features.<i>} for a VGG layer-name sequence: torchvision
+    indexes `features` in the sequence's order."""
+    out = {}
+    for i, name in enumerate(names):
+        if name.startswith("conv"):
+            for leaf in ("weight", "bias"):
+                out[f"{name}.{leaf}"] = torch.as_tensor(
+                    np.asarray(features_sd[f"features.{i}.{leaf}"], np.float32))
+    return out
+
+
+def convert_vgg_torch_weights(torch_state_dict: Mapping,
+                              layer_name_list) -> Dict[str, torch.Tensor]:
+    """torchvision vgg19 `features.*` state dict -> the state dict of
+    `VGGFeatureExtractor(layer_name_list)` (the convolutions up to its
+    deepest layer)."""
+    from grlir_torch.models.vgg import VGG19_NAMES
+
+    last = max(VGG19_NAMES.index(n) for n in layer_name_list)
+    return _torchvision_convs(VGG19_NAMES[: last + 1], torch_state_dict)
+
+
+def convert_lpips_torch_weights(lpips_state_dict: Mapping,
+                                vgg_features_state_dict: Mapping) -> dict:
+    """The official LPIPS `.pth` (lin layers) and torchvision's vgg16
+    `features` state dict -> grlir's parameter tree {'params': {conv:
+    {'kernel', 'bias'}, 'lin<i>': (C,)}} of numpy arrays, the tree that
+    `save_lpips_params` writes and both packages read."""
+    from grlir_torch.metrics.lpips import LPIPS_TAPS, VGG16_NAMES
+
+    params: Dict[str, object] = {}
+    for key, t in _torchvision_convs(VGG16_NAMES, vgg_features_state_dict).items():
+        name, leaf = key.split(".")
+        a = t.numpy()
+        params.setdefault(name, {})["kernel" if leaf == "weight" else "bias"] = (
+            a.transpose(2, 3, 1, 0) if leaf == "weight" else a)
+    for i in range(len(LPIPS_TAPS)):
+        key = f"lins.{i}.model.1.weight"
+        if key not in lpips_state_dict:
+            key = f"lin{i}.model.1.weight"
+        params[f"lin{i}"] = np.asarray(lpips_state_dict[key], np.float32).reshape(-1)
+    return {"params": params}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A `.pth`/`.ckpt` file's state dict (its "state_dict" entry where it
+    has one) on the CPU."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return ckpt.get("state_dict", ckpt)

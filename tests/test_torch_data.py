@@ -154,11 +154,33 @@ def test_npy_cache_is_written_atomically_and_reread(data_root, tmp_path, monkeyp
             np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_jpeg_and_bsr_raise():
+def test_jpeg_and_bsr_raise(data_root, tmp_path, monkeypatch):
+    """JPEG data still raises (ROADMAP A10); the bsr data module no longer
+    does: its first train batches (process workers by default, here one
+    thread) equal grlir's within the BSR data's JPEG gate
+    (tests/test_torch_bsr.py), the generator-driven parts exactly."""
+    from test_torch_bsr import FLOAT_ATOL, USM_NEAR, JpegGate
+
     with pytest.raises(NotImplementedError, match="A10"):
         TModule({"name": "jpeg", "train": {"dataset": "div2k"}})
-    with pytest.raises(NotImplementedError, match="A9"):
-        TModule({"name": "bsr", "train": {"dataset": "ost"}})
+    monkeypatch.setenv("GRLIR_CACHE_DIR", str(tmp_path / "cache"))
+    cfg = {"name": "bsr", "scale": 4, "patch_size": 8, "worker_mode": "thread",
+           "train": {"dataset": "div2k"}}
+    batches = {}
+    for side, module, c in (("grlir", JModule, dict(cfg, use_cache=False)),
+                            ("port", TModule, cfg)):
+        dm = module(c, seed=SEED)
+        assert not dm.val_datasets
+        batches[side] = _first(dm.train_loader(2, num_workers=1), 2)
+    gate = JpegGate()
+    for got, want in zip(batches["port"], batches["grlir"]):
+        assert sorted(got) == sorted(want)
+        assert list(got["indices"]) == list(want["indices"])
+        assert got["filenames"] == want["filenames"]
+        gate.check(got["img_lq"], want["img_lq"], "lq")
+        np.testing.assert_allclose(got["img_gt"], want["img_gt"], atol=FLOAT_ATOL)
+        np.testing.assert_allclose(got["img_gt_usm"], want["img_gt_usm"], atol=USM_NEAR)
+    gate.finish()
 
 
 def test_loader_index_order_equals_grlir():

@@ -2,7 +2,8 @@
 same weights (tests/torch_parity.py's small GRL-S trunk) and the same numpy
 validation sets through grlir's `validate` with its JAX `Restorer` and the
 port's `validate` with the port's `Restorer`, for the tasks sr (shaved),
-dn, dm, db and a GT-free blind SR set scored by NIQE."""
+dn, dm, db and a GT-free blind SR set scored by NIQE, and LPIPS beside
+PSNR on the sr set."""
 
 import csv
 import importlib
@@ -12,6 +13,7 @@ import pytest
 
 from grlir.data import degradations as JD
 from grlir.engines.inference import Restorer as JRestorer
+from grlir.metrics import lpips as JL
 from grlir.utils.matlab import imresize
 from grlir_torch.engines import validate as TV
 from grlir_torch.engines.inference import Restorer
@@ -23,6 +25,7 @@ JV = importlib.import_module("grlir.engines.validate")
 DB_TOL = 1e-3     # dB: fp32 restorations a few 1e-6 apart, rounded to 1/255
 UNIT_TOL = 1e-5   # SSIM
 NIQE_TOL = 1e-3   # NIQE (unitless, ~5-20) of the same rounded restorations
+LPIPS_TOL = 1e-5  # LPIPS (unitless, ~0.1-1) of the same rounded restorations
 PRINT_TOL = 1e-4  # one unit of the 4 decimals the table and the CSV print
 FULL = ("psnr", "psnr_y", "ssim", "ssim_y", "psnrb", "psnrb_y")
 
@@ -119,14 +122,53 @@ def test_validate_matches_grlir(task, tmp_path):
             assert abs(float(a) - float(b)) <= _tol(n) + PRINT_TOL
 
 
-def test_validate_refuses_what_grlir_refuses():
+def test_validate_refuses_what_grlir_refuses(monkeypatch):
+    """Reference metrics on a GT-free set, lpips without $GRLIR_LPIPS_NPZ
+    (both packages raise naming it) and an unknown metric."""
     upsampler, scale, loader, _, _ = _case("bsr")
-    _, _, tmodel, _ = model_pair(upsampler, scale, seed=20)
+    jmodel, params, tmodel, _ = model_pair(upsampler, scale, seed=20)
     restorer = Restorer(tmodel, "cpu", scale=scale)
     with pytest.raises(ValueError, match="GT-free"):
         TV.validate(restorer, loader, ("psnr", "niqe"), task="bsr", scale=scale)
     _, _, loader, _, _ = _case("sr")
-    with pytest.raises(NotImplementedError, match="A9"):
-        TV.validate(restorer, loader, ("lpips",), task="sr", scale=scale)
+    monkeypatch.delenv("GRLIR_LPIPS_NPZ", raising=False)
+    monkeypatch.setattr(JL, "_LPIPS_STATE", None)
+    for mod, r in ((JV, JRestorer(jmodel.apply, params, scale=scale)), (TV, restorer)):
+        with pytest.raises(RuntimeError, match="GRLIR_LPIPS_NPZ"):
+            mod.validate(r, loader, ("lpips",), task="sr", scale=scale)
     with pytest.raises(ValueError, match="unknown validation metric"):
         TV.validate(restorer, loader, ("psnr_x",), task="sr", scale=scale)
+
+
+def test_validate_lpips_matches_grlir(tmp_path, monkeypatch):
+    """LPIPS (random VGG16 and calibration weights, one npz file for both
+    packages through $GRLIR_LPIPS_NPZ) beside PSNR on the sr set."""
+    rng = np.random.default_rng(3)
+    params = {}
+    cin = 3
+    for name in JL.VGG16_NAMES:
+        if name.startswith("conv"):
+            cout = {"conv1": 64, "conv2": 128, "conv3": 256}.get(name[:5], 512)
+            bound = 1 / np.sqrt(9 * cin)
+            params[name] = {
+                "kernel": rng.uniform(-bound, bound, (3, 3, cin, cout)).astype(np.float32),
+                "bias": rng.normal(0, 0.05, cout).astype(np.float32)}
+            cin = cout
+    for i, c in enumerate(JL.LPIPS_TAP_CH):
+        params[f"lin{i}"] = rng.uniform(0, 1, c).astype(np.float32)
+    path = tmp_path / "lpips.npz"
+    JL.save_lpips_params({"params": params}, str(path))
+    monkeypatch.setenv("GRLIR_LPIPS_NPZ", str(path))
+    monkeypatch.setattr(JL, "_LPIPS_STATE", None)
+
+    upsampler, scale, loader, _, _ = _case("sr")
+    jmodel, jparams, tmodel, _ = model_pair(upsampler, scale, seed=20)
+    names = ("psnr", "lpips")
+    want = JV.validate(JRestorer(jmodel.apply, jparams, scale=scale), loader, names,
+                       task="sr", scale=scale)
+    got = TV.validate(Restorer(tmodel, "cpu", scale=scale), loader, names, task="sr",
+                      scale=scale)
+    assert list(got) == list(want) == list(names)
+    assert np.isfinite(got["lpips"]) and got["lpips"] > 0
+    assert abs(got["psnr"] - want["psnr"]) <= DB_TOL
+    assert abs(got["lpips"] - want["lpips"]) <= LPIPS_TOL, (got, want)
