@@ -35,7 +35,10 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      on its own q, k, v within 1e-2; its q, k, v bf16 flips at most twice
      the plain path's plus 16, both counted against a float64-summed
      projection; at most 1e-4 of the outputs off by more than 1e-2 end to
-     end);
+     end); since slice 11 B3 also at the JPEG experiment's window 36 on
+     288^2 (GRL-S width, shifts 0 and 18), and B1's bf16 route at window
+     16 on the same stage gates (`grlir_torch.b1_spread`), over its twelve
+     input draws too (ROADMAP C9);
   5. the fused engines (slice 3: B5 `flash_rect_attention`, B6
      `fused_window_attention_qkv`, B7a `fused_cosine_attention`, B7b
      `fused_cosine_attention_packed`): each kernel vs its plain version at
@@ -80,12 +83,17 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      checkpoint served through `grlir_torch.serve` from a PNG file; launch
      counts reset just before the CLI run and read just after (B3, B4a and
      B4b, the routes the recipe's window 32 and 64x64 stripes take, must
-     launch under grad); the gates of `grlir_torch.train_cells` (fp32 one
+     launch under grad); then (slice 11) the JPEG recipe
+     (experiment=jpeg/grl_p288 at its geometry: GRL-S, window 36, fixed
+     72x144 stripes, df 4, patch 288, bf16 with the kernels under grad) on
+     the same root with a two-image LIVE1 set: 2 steps, a resume to 3,
+     every B3 launch on the tensor-core route, the stripe halves unrouted
+     and no B4, then its step timed; the gates of `grlir_torch.train_cells` (fp32 one
      step, kernels on vs off: loss within 1e-5 relative, gradients within
      1e-3 max|g| + 1e-7; bf16 ten steps of cells a and b: finite losses
      within 2e-2 of kernels off at every step, falling in both modes; a
      Restorer's replay after optimizer steps equal to eager); then each
-     cell's train step timed kernels off and on (20 steps after 3, CUDA
+     cell's train step timed kernels off and on (10 steps after 3, CUDA
      events: median, min-max, samples/s, peak memory, device-busy share,
      launches a step by kernel and route).  The JSON line adds
      `train_launches` (the CLI run) and `train_step_launches` (one step of
@@ -110,6 +118,16 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      runs, and in bf16 (lightning-parity, kernels off and on, every
      kernels-on launch of B1 and B4 on its tensor-core route).  The JSON line adds `gan_launches` (stage 2's CLI runs) and
      `gan_step_launches` (one step of each protocol).
+ 10. training across processes (ROADMAP A8): the PSNR CLI at world size 1
+     on NCCL through GRLIR_COORDINATOR, in a process of its own beside the
+     same run undistributed (deterministic algorithms, one hash seed): the
+     last loss and the saved parameters equal to the bit; then two ranks
+     sharing the card over gloo (`grlir_torch.parallel_cells`: GRL-S fp32,
+     kernels on, 3 SGD steps at 2 rows a rank; a tiled Restorer across the
+     ranks; validation metrics gathered from the ranks' strides) against
+     one process on the global batch at that module's gates, both ranks
+     launching B1 and B2.  The JSON line adds `jpeg_launches` (the JPEG
+     CLI run) and `parallel_launches` (the NCCL CLI run, each gloo rank).
   On the card the Restorer runs every served request on a CUDA graph, so
   the serve phases count the launches of the traced forwards (each graph's
   warm-up forwards and capture); its replays launch without counting.
@@ -459,6 +477,112 @@ def write_train_root(root) -> str:
     return os.path.join(root, "test_set", "Set5", "v0_x4.png")
 
 
+JPEG_STEPS, JPEG_RUNS = 2, 5     # the JPEG recipe's step: warm-up, timed steps
+
+
+def write_jpeg_root(root) -> None:
+    """The JPEG experiment's data on write_train_root's root: a DIV2K
+    manifest of its GT images (320^2, over the recipe's 288^2 patch) and a
+    two-image LIVE1 val set of 288^2."""
+    import os
+
+    from grlir_torch.utils.image import to_uint8
+    from grlir_torch.utils.imageio import imwrite
+
+    with open(os.path.join(root, "image_info", "DIV2K", "train.json"), "w") as f:
+        json.dump([{"path": f"train/{i:04d}.png"} for i in range(TRAIN_IMAGES)], f)
+    os.makedirs(os.path.join(root, "test_set", "LIVE1"), exist_ok=True)
+    for i, gt in enumerate(val_images(12, 2, 288)):
+        imwrite(os.path.join(root, "test_set", "LIVE1", f"l{i}.png"), to_uint8(gt))
+    os.makedirs(os.path.join(root, "image_info", "LIVE1"), exist_ok=True)
+    with open(os.path.join(root, "image_info", "LIVE1", "test.json"), "w") as f:
+        json.dump([{"path": f"LIVE1/l{i}.png"} for i in range(2)], f)
+
+
+def jpeg_run(dev, smi, counts, routes, out: str) -> dict:
+    """experiment=jpeg/grl_p288 at its own geometry (GRL-S, window 36,
+    fixed 72x144 stripes, df 4, patch 288, bs1) in bf16 with the kernels
+    on under grad too (model.use_pallas_attention=v3), on the data root of
+    $GRLIR_DATA_ROOT: 2 CLI steps, then a resume to 3, validation on LIVE1
+    at 2 and 3 (576-tiles clipped to the 288^2 images); every B3 launch on
+    the tensor-core route, the stripe halves unrouted, no B4; then the
+    step timed.  Returns the CLI run's launches (counts set to 0 just
+    before, read just after)."""
+    import os
+
+    from grlir_torch.configs import load_config
+    from grlir_torch.engines.train import TrainState, make_train_step
+    from grlir_torch.models.grl import GRL, init_weights
+    from grlir_torch.ops import block_attn as ba
+    from grlir_torch.optim import build_optimizer
+    from grlir_torch.train import build_model_config
+    from grlir_torch.train import main as train_main
+
+    args = ["experiment=jpeg/grl_p288", "data_module.train.dataset=div2k", "dtype=bfloat16",
+            "model.use_pallas_attention=v3", "trainer.val_check_interval=2",
+            "trainer.log_every_n_steps=1", f"io.base_output_path={out}", "tag=chip_jpeg",
+            "num_workers=4"]
+    cfg = build_model_config(load_config(args))
+    n_blocks = sum(cfg.depths)
+    ba.reset_launches()
+    t0 = time.perf_counter()
+    train_main(args + [f"trainer.max_steps={JPEG_STEPS}"])
+    t1 = time.perf_counter()
+    train_main(args + [f"trainer.max_steps={JPEG_STEPS + 1}"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cli, by_route, unrouted = counts(), routes(), ba.unrouted_halves
+    run = os.path.join(out, "chip_jpeg", "version_0")
+    with open(os.path.join(run, "results.csv")) as f:
+        rows = f.read().splitlines()
+    steps = [r.split(",")[2] for r in rows[1:]]
+    print(f"[jpeg] CLI {' '.join(args)}: {JPEG_STEPS} steps in {t1 - t0:.1f} s, resumed to "
+          f"{JPEG_STEPS + 1} in {t2 - t1:.1f} s; results.csv {rows[1:]}; checkpoints "
+          f"{sorted(os.listdir(os.path.join(run, 'checkpoints')))}; B3 launches by route "
+          f"{by_route['window_half_large']}, launches { {k: n for k, n in cli.items() if n} }, "
+          f"unrouted halves {unrouted}")
+    check(steps == [str(JPEG_STEPS), str(JPEG_STEPS + 1)], f"jpeg CLI: results.csv {steps}")
+    check(cli["window_half_large"] > 0
+          and by_route["window_half_large"] == {"tensor_core": cli["window_half_large"],
+                                                "cuda_core": 0},
+          f"jpeg CLI: B3 off its bf16 route {by_route}")
+    check(all(n == 0 for k, n in cli.items() if k != "window_half_large"),
+          f"jpeg CLI: launches {cli}")
+    # every block's stripe half runs the plain attention: each forward
+    # (a train step's, a validation graph's warm-up and capture) counts
+    # n_blocks
+    check(unrouted > 0 and unrouted % n_blocks == 0, f"jpeg CLI: unrouted halves {unrouted}")
+
+    # the step, timed
+    model = init_weights(GRL(cfg), torch.Generator().manual_seed(0)).to(dev)
+    opt, sched = build_optimizer(model.parameters(), "adamw", learning_rate=1e-4)
+    state = TrainState(model.train(), opt, sched, generator=torch.Generator().manual_seed(1),
+                       rng=np.random.default_rng(2))
+    gt = torch.from_numpy(val_images(13, 1, 288)).to(dev)
+    batch = {"img_lq": (gt + 0.05 * torch.randn(gt.shape, generator=torch.Generator()
+                                                  .manual_seed(3)).to(dev)).clamp(0, 1),
+             "img_gt": gt}
+    step = make_train_step({"charbonnier": 1.0})
+    for _ in range(JPEG_STEPS):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ba.reset_launches()
+    step(state, batch)
+    torch.cuda.synchronize()
+    launched, unrouted = counts(), ba.unrouted_halves
+    torch.cuda.reset_peak_memory_stats()
+    times = time_ms(lambda: step(state, batch), JPEG_RUNS, 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[time] jpeg step GRL-S window 36 stripes 72x144 bf16 bs1 288^2: {spread(times)} a "
+          f"step over {JPEG_RUNS} steps after {JPEG_STEPS + 1}, peak {peak:.2f} GiB; launches "
+          f"a step { {k: n for k, n in launched.items() if n} }, unrouted halves {unrouted} "
+          f"[{smi}]")
+    check(launched["window_half_large"] == n_blocks and unrouted == n_blocks,
+          f"jpeg step: launches {launched}, unrouted {unrouted}")
+    del state, model
+    return cli
+
+
 def train_phase(dev, smi, counts, routes):
     """The trainer (ROADMAP A7) on the card; returns the launches of the
     CLI run (counts set to 0 just before, read just after) and those of one
@@ -559,6 +683,10 @@ def train_phase(dev, smi, counts, routes):
               f"{np.array_equal(got, want)}")
         check(got.shape == (256, 256, 3) and np.array_equal(got, want), "train: serve")
         del ref
+
+        # the JPEG artifact-removal recipe (ROADMAP A10a) on the same root
+        write_jpeg_root(os.environ["GRLIR_DATA_ROOT"])
+        jpeg_cli = jpeg_run(dev, smi, counts, routes, out)
     finally:
         ckpt_mod.CheckpointManager.restore = restore
         for k, v in saved_env.items():
@@ -632,10 +760,148 @@ def train_phase(dev, smi, counts, routes):
     print(f"[train] timing: {time.perf_counter() - t0:.1f} s")
     check(any(n > 0 for c in per_step for n in per_step[c].values()),
           "train: no B1-B4 launch under grad")
-    return cli_counts, per_step
+    return cli_counts, per_step, jpeg_cli
 
 
-GAN_WARMUP, GAN_RUNS = 1, 10        # GAN-step timing: warm-up, timed steps
+PARALLEL_STEPS = 3                   # the NCCL world-1 CLI run's steps
+
+
+def parallel_phase(dev, smi) -> dict:
+    """Training across processes (ROADMAP A8) on the one card; returns
+    the launches by kernel of the NCCL CLI run and of each gloo rank.
+
+    1. World size 1 on NCCL through GRLIR_COORDINATOR: the PSNR CLI (GRL-S
+       width, bf16, v3, bs8, one loader thread) for PARALLEL_STEPS steps in
+       a process of its own, beside the same run undistributed, both with
+       deterministic algorithms and one hash seed (the datasets' generator
+       is seeded from the hash of the stage's name): the last step's loss
+       and the saved parameters equal to the bit.
+    2. The card cell of `grlir_torch.parallel_cells` (GRL-S fp32, kernels
+       on, 3 SGD steps at 2 rows a rank; the tiled Restorer across the
+       ranks; the gathered validation metrics) on two ranks that share the
+       card over gloo (NCCL refuses two ranks on one GPU), and on one rank
+       over NCCL through GRLIR_COORDINATOR, whose group of one runs every
+       collective (the gradients' all-reduce, the gathers of host tensors
+       through the card), each against one process on the global batch of
+       4 at the module's gates."""
+    import os
+    import subprocess
+    import tempfile
+
+    from grlir_torch import parallel_cells as pc
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    data = os.path.join(tmp.name, "data")
+    write_train_root(data)
+    args = ["experiment=sr/grl_p256", "model=grl/grl_small", "model.name=grl_small",
+            "model.embed_dim=128", "model.upsampler=pixelshuffle", "batch_size=8",
+            "dtype=bfloat16", "model.use_pallas_attention=v3",
+            f"trainer.max_steps={PARALLEL_STEPS}", "trainer.log_every_n_steps=1",
+            "data_module.train.dataset=div2k", "data_module.val.dataset=set5",
+            "tag=chip_ddp", "num_workers=1"]
+    code = ("import json, sys, torch\n"
+            "torch.use_deterministic_algorithms(True, warn_only=True)\n"
+            "from grlir_torch.train import main\n"
+            "main(sys.argv[1:])\n"
+            "import torch.distributed as dist\n"
+            "from grlir_torch.ops import block_attn as ba\n"
+            "print('LAUNCHES', json.dumps({k.__name__: k.launches for k in ba.KERNELS}))\n"
+            "print('BACKEND', dist.get_backend() if dist.is_initialized() else None, "
+            "dist.get_world_size() if dist.is_initialized() else 1)\n")
+    port = pc.free_port()
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for mode in ("undistributed", "nccl"):
+            env = {**os.environ, "PYTHONPATH": repo, "GRLIR_DATA_ROOT": data,
+                   "GRLIR_CACHE_DIR": os.path.join(tmp.name, f"cache_{mode}"),
+                   "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONHASHSEED": "0"}
+            if mode == "nccl":
+                env.update(GRLIR_COORDINATOR=f"127.0.0.1:{port}", GRLIR_NUM_PROCESSES="1",
+                           GRLIR_PROCESS_ID="0")
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-c", code, *args,
+                 f"io.base_output_path={os.path.join(tmp.name, mode)}"],
+                env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs = {}
+        for mode, p in procs.items():
+            out = p.communicate(timeout=600)[0]
+            check(p.returncode == 0, f"parallel: the {mode} CLI exited {p.returncode}:\n"
+                  f"{out[-4000:]}")
+            lines = out.splitlines()
+            launches = json.loads(next(ln for ln in lines if ln.startswith("LAUNCHES"))[9:])
+            backend = next(ln for ln in lines if ln.startswith("BACKEND"))
+            nondet = sorted({ln.strip()[:160] for ln in lines
+                             if "does not have a deterministic implementation" in ln})
+            run = os.path.join(tmp.name, mode, "chip_ddp", "version_0")
+            with open(os.path.join(run, "metrics.jsonl")) as f:
+                logged = [json.loads(ln) for ln in f.read().splitlines()]
+            saved = torch.load(os.path.join(run, "checkpoints", f"step_{PARALLEL_STEPS}",
+                                            "checkpoint.pt"), map_location="cpu",
+                               weights_only=True)
+            runs[mode] = (logged[-1], saved["model"], launches)
+            print(f"[parallel] {mode} CLI: {backend}; step {logged[-1]['step']} loss "
+                  f"{logged[-1]['loss']!r}; launches { {k: n for k, n in launches.items() if n} }"
+                  f"; ops without a deterministic implementation {nondet}")
+        (log_u, sd_u, _), (log_n, sd_n, launches_n) = runs["undistributed"], runs["nccl"]
+        same = sd_u.keys() == sd_n.keys() and all(torch.equal(sd_u[k], sd_n[k]) for k in sd_u)
+        print(f"[parallel] world size 1 on NCCL vs undistributed, {PARALLEL_STEPS} steps: loss "
+              f"{log_n['loss']!r} vs {log_u['loss']!r}, parameters equal to the bit {same} "
+              f"({time.perf_counter() - t0:.1f} s, both at once)")
+        check(log_n["step"] == log_u["step"] == PARALLEL_STEPS and log_n["loss"] == log_u["loss"]
+              and same, "parallel: NCCL world 1 differs from undistributed")
+        check(launches_n["window_half_large"] > 0 and launches_n["stripe_a2w_large"] > 0,
+              f"parallel: NCCL CLI launches {launches_n}")
+
+        # the card cell on two gloo ranks and on one NCCL rank, against one
+        # process
+        cell = pc.card_scenarios(os.path.join(tmp.name, "cell"))
+        runs, walls = {}, {}
+        for name, world, group in (("gloo", 2, "gloo"), ("nccl", 1, "env")):
+            t0 = time.perf_counter()
+            runs[name] = pc.launch(world, cell, os.path.join(tmp.name, name), device="cuda",
+                                   group=group)
+            walls[name] = time.perf_counter() - t0
+        ref = pc.reference(cell, dev)
+        rt = ref["train"]
+        print(f"[parallel] one process, {2 * pc.PER_RANK} rows: losses {rt['losses']}, step ms "
+              f"{[round(t, 3) for t in rt['step_ms']]}, metrics {ref['validate']}")
+        for name, ranks in runs.items():
+            fails = pc.compare(ranks, ref)
+            for r, o in enumerate(ranks):
+                t = o["train"]
+                print(f"[parallel] {name} rank {r} of {len(ranks)} ({o['backend']}), GRL-S fp32 "
+                      f"kernels on, {pc.PER_RANK * 2 // len(ranks)} rows: losses {t['losses']}, "
+                      f"step ms {[round(s, 3) for s in t['step_ms']]}, launches {t['launches']}, "
+                      f"routes {t['routes']}, unrouted {t['unrouted']}, "
+                      f"metrics {o['validate']}")
+            a = ranks[0]
+            err = float(np.abs(a["restorer"]["out"] - ref["restorer"]["out"]).max())
+            pmax = max(float((a["train"]["params"][n] - v).abs().max())
+                       for n, v in rt["params"].items())
+            print(f"[parallel] {name} ranks vs one process: parameters max|diff| {pmax:.3e}, "
+                  f"Restorer max|diff| {err:.3e}; gates (losses rel {pc.LOSS_REL}, parameters "
+                  f"rtol {pc.PARAM_RTOL} atol {pc.PARAM_ATOL}, Restorer {pc.RESTORE_ATOL}, "
+                  f"metrics rel {pc.METRIC_REL}): {fails or 'pass'} (ranks {walls[name]:.1f} s) "
+                  f"[{smi}]")
+            check(not fails, f"parallel: {name} ranks vs one process: {fails}")
+            check(all(o["backend"] == name for o in ranks), f"parallel: {name} backend")
+            check(all(o["train"]["launches"].get(k, 0) > 0 for o in ranks
+                      for k in ("window_half", "stripe_half")),
+                  f"parallel: a {name} rank launched no B1 or B2")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+    return {"nccl_cli": launches_n,
+            **{f"{name}_rank{r}": o["train"]["launches"]
+               for name, ranks in runs.items() for r, o in enumerate(ranks)}}
+
+
+GAN_WARMUP, GAN_RUNS = 1, 5         # GAN-step timing: warm-up, timed steps
 BSR_HOST_ITEMS = 8                   # BSR train samples timed on the host
 
 
@@ -936,7 +1202,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from grlir_torch import b5_spread
+    from grlir_torch import b1_spread, b5_spread
+    from grlir_torch.b1_spread import b1_stage_check
     from grlir_torch.b3_spread import b3_stage_check, stage_failures, stage_line
     from grlir_torch.engines.inference import WARMUP_FORWARDS, Restorer
     from grlir_torch.gan_cells import BSR_G
@@ -963,6 +1230,12 @@ def main() -> int:
 
     def rnd6(*shape, std=1.0):
         return (torch.randn(*shape, generator=g6) * std).to(dev)
+
+    # and those of the JPEG experiment's window half
+    g11 = torch.Generator().manual_seed(11)
+
+    def rnd11(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g11) * std).to(dev)
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -1039,7 +1312,13 @@ def main() -> int:
             return n, 2 * B_ * H * W_ * C * 3 * Cw + 4 * B_ * H * W_ * N * Cw
 
         if large:   # B3's bf16 route split into its stages (b3_spread)
-            return fn, lib, cost, lambda t: b3_stage_check(t, w, b, ls, bias, bands, shift, h)
+            return fn, lib, cost, lambda t: b3_stage_check(t, w, b, ls, bias, bands, shift, h,
+                                                           win)
+        if (tuple(win), h, C, Cw // h) == (b1_spread.WINDOW, b1_spread.HEADS, b1_spread.C,
+                                           b1_spread.D):
+            # B1 at GRL-base-bsr's window half, split into its stages (C9)
+            return fn, lib, cost, lambda t: b1_stage_check(t, w, b, ls, bias, bands, shift, h,
+                                                           win)
         return fn, lib, cost
 
     def stripe_parts(t, anchor, w, b, h, stripe, df, shift):
@@ -1190,9 +1469,10 @@ def main() -> int:
                     elif dtype == torch.float32:
                         ok = torch.allclose(got, want, atol=FP32_TOL, rtol=FP32_TOL)
                         tol = f"atol {FP32_TOL} rtol {FP32_TOL}"
-                    elif kname == "window_half_large":
-                        # the stage gates; the gated y is the wrapper's, the
-                        # stage split's plain y the plain version's
+                    elif kname in ("window_half_large", "window_half") and spread:
+                        # the stage gates (B3, and B1 at window 16); the gated
+                        # y is the wrapper's, the stage split's plain y the
+                        # plain version's
                         st = spread[0](xt)
                         same = (torch.equal(st["y"], got.float())
                                 and torch.equal(st["y_plain"], want.float()))
@@ -1301,6 +1581,19 @@ def main() -> int:
         for s in (0, 4):
             cases_s.append(("window_half", f"window {win} shift {s} h2 d64", window_case(
                 x64, w64, b64, ls1, bias_w, win, geom["bands_w"] if s else None, s), x64))
+        # B3 at the JPEG experiment's window half (jpeg/grl_p288: GRL-S
+        # width, window 36, N = 1296 in q tiles of 64, the last of 16
+        # rows), one 288^2 patch, shifted by 18 and not
+        jcfg = zoo.make_config("small", task="jpeg", window_size=36, stripe_size=(72, 144),
+                               stripe_groups=(None, None), anchor_window_down_factor=4)
+        jhw, jwin = (288, 288), (36, 36)
+        jbands = geometry_tensors(jcfg.geometry_config, jhw, dev)["bands_w"]
+        xj = rnd11(1, *jhw, C)
+        bias36 = 16 * torch.sigmoid(rnd11(heads, jwin[0] ** 2, jwin[0] ** 2))
+        for s in (0, 18):
+            cases_s.append(("window_half_large", f"window {jwin} shift {s} jpeg 288^2",
+                            window_case(xj, w, b, ls1, bias36, jwin, jbands if s else None, s),
+                            xj))
         run_cases(cases_s, max_err)
 
     with Phase("GRL-S model"):
@@ -1477,6 +1770,19 @@ def main() -> int:
                                     f"stripe {stripe} shift {args[-1]} df {df} h3 d30",
                                     stripe_case(step, *args), x))
         run_cases(cases_b, max_err)
+        # C9: B1's bf16 route at GRL-base-bsr's window half over the twelve
+        # input draws of b1_spread, held to the stage gates; the C entry is
+        # called directly, so no launch is counted
+        worst = 0.0
+        for seed in b1_spread.SEEDS:
+            for sh in b1_spread.SHIFTS:
+                st = b1_stage_check(*b1_spread.draw(seed, sh, dev), sh, b1_spread.HEADS)
+                worst = max(worst, st["e2e_err"])
+                print(f"[C9] window_half window {b1_spread.WINDOW} h3 d30 seed {seed} shift "
+                      f"{sh} bf16: max|diff| {st['e2e_err']:.3e}; stage gates: "
+                      f"{stage_line(st)}")
+                check(not stage_failures(st), f"C9 B1 window 16 seed {seed} shift {sh}")
+        print(f"[C9] window_half bf16 max|diff| over the twelve draws: {worst:.3e}")
 
     with Phase("GRL-base model"):
         base = init_weights(GRL(replace(sr_cfg, dtype=torch.bfloat16)),
@@ -2242,16 +2548,23 @@ def main() -> int:
     # 8. the trainer (ROADMAP A7): the CLI trains, validates, checkpoints,
     # resumes and serves; the train step's gates and its two cells timed
     with Phase("train"):
-        train_cli, train_step = train_phase(dev, smi, counts, routes)
+        train_cli, train_step, jpeg_cli = train_phase(dev, smi, counts, routes)
 
     # 9. real-world SR training (ROADMAP A9): stage 1 and the GAN runner's
     # CLI, the GAN step's gates, and its two protocols timed
     with Phase("gan"):
         gan_cli, gan_step = gan_phase(dev, smi, counts, routes)
 
+    # 10. training across processes (ROADMAP A8): NCCL at world size 1,
+    # and two gloo ranks sharing the card, against one process
+    with Phase("parallel"):
+        par = parallel_phase(dev, smi)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": served[k], "train_launches": train_cli.get(k, 0),
+         "jpeg_launches": jpeg_cli.get(k, 0),
+         "parallel_launches": {run: n.get(k, 0) for run, n in par.items()},
          "train_step_launches": {c: n.get(k, 0) for c, n in train_step.items()},
          "gan_launches": gan_cli.get(k, 0),
          "gan_step_launches": {p: n.get(k, 0) for p, n in gan_step.items()},

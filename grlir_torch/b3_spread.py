@@ -97,10 +97,11 @@ def _plain_qkv(x, w, b, ls, shift, heads, project, window=WINDOW):
             ba._unit(k).to(torch.bfloat16).float(), v.to(torch.bfloat16).float()]
 
 
-def _attend(q, k, v, bias, bands, size, window=WINDOW):
+def _attend(q, k, v, bias, bands, size, window=WINDOW, bias_dtype=torch.bfloat16):
     """B3's attention (`window_half_large_ref` after the projection) on
-    rounded q, k, v; NHWC y in rolled coordinates, bf16 values as fp32."""
-    a = q @ k.transpose(-1, -2) + bias.to(torch.bfloat16).float()
+    rounded q, k, v, the bias rounded to bias_dtype (B1 keeps it fp32);
+    NHWC y in rolled coordinates, bf16 values as fp32."""
+    a = q @ k.transpose(-1, -2) + bias.to(bias_dtype).float()
     if bands is not None:
         a = a + ba._band_mask(bands, bands)
     y = ba._softmax_times(a, v, torch.bfloat16)

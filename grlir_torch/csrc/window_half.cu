@@ -166,7 +166,9 @@ namespace {
 // input channels (w_sc) and columns (w_scol); b (3Cw,) fp32; scale (heads,)
 // fp32 exp(min(logit_scale, log 100)); bias (heads, N, N) fp32; bands
 // (windows, N) int32 or null; y (B, H, W, Cw) bf16.  Cp: C rounded up to
-// 16; hp: heads whose w shared memory holds at once (all, or one).
+// 16; hp: heads whose w shared memory holds at once (all, or one).  qkv:
+// null, or (windows, heads, 3, N, DP) bf16 that receives q, k and v as the
+// kernel rounds them (the stage split of grlir_torch/b1_spread.py).
 struct WinMmaArgs {
   const bf16* x;
   const void* w;
@@ -178,6 +180,7 @@ struct WinMmaArgs {
   const int* bands;
   bf16* y;
   int B, H, W, C, Cp, Cw, heads, d, wh, ww, shift, hp;
+  bf16* qkv;
 };
 
 // Shared memory of window_half_mma_kernel, byte offsets: w rows (hp heads
@@ -214,10 +217,12 @@ struct WinLayout {
 };
 
 // The bf16 window half, see the note at the top.  DP: the head's columns in
-// shared memory (32 or 64, zeros past d).  Grid: persistent, block b takes
-// windows b, b + gridDim.x, ...; each (window, head) is a sequence of
-// projection steps of 64 tokens, then the head's attention.
-template <int DP>
+// shared memory (32 or 64, zeros past d).  kQkv: also write q, k and v to
+// a.qkv (the stage split's instance; the served one is compiled without).
+// Grid: persistent, block b takes windows b, b + gridDim.x, ...; each
+// (window, head) is a sequence of projection steps of 64 tokens, then the
+// head's attention.
+template <int DP, bool kQkv>
 __global__ void __launch_bounds__(kMmaThreads)
 window_half_mma_kernel(WinMmaArgs a) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -374,9 +379,13 @@ window_half_mma_kernel(WinMmaArgs a) {
       for (int r = 0; r < 2; ++r) {
         const int t = tile * 64 + warp * 16 + gr + 8 * r;
 #pragma unroll
-        for (int n = 0; n < NTL; ++n)
-          *reinterpret_cast<unsigned*>(dst + t * L.ldq + n * 8 + 2 * qd) =
-              pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+        for (int n = 0; n < NTL; ++n) {
+          const unsigned v = pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+          *reinterpret_cast<unsigned*>(dst + t * L.ldq + n * 8 + 2 * qd) = v;
+          if (kQkv && t < N)
+            *reinterpret_cast<unsigned*>(a.qkv + (((size_t)g * h + hh) * 3 + p) * N * DP +
+                                         (size_t)t * DP + n * 8 + 2 * qd) = v;
+        }
       }
     }
     __syncthreads();  // x and w consumed, the tile's q, k, v complete
@@ -447,9 +456,9 @@ window_half_mma_kernel(WinMmaArgs a) {
   }
 }
 
-template <int DP>
+template <int DP, bool kQkv>
 int launch_window_half_mma(WinMmaArgs a, cudaStream_t stream) {
-  auto kernel = window_half_mma_kernel<DP>;
+  auto kernel = window_half_mma_kernel<DP, kQkv>;
   const int N = a.wh * a.ww;
   int dev = 0, limit = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -499,19 +508,47 @@ extern "C" int grlir_window_half(const void* x, const void* w, const float* bqkv
 // w_scol over columns; bqkv (3Cw,) fp32; scale (heads,) fp32; bias (heads,
 // N, N) fp32; bands (windows, N) int32 or null; y (B, H, W, Cw) bf16.
 // Returns 0, -1 (head dim above 64 or shared memory) or a cudaError_t.
+static int window_half_mma(const void* x, const void* w, long long w_sc, long long w_scol,
+                           int w_bf16, const float* bqkv, const float* scale,
+                           const float* bias, const int* bands, void* y, int B, int H,
+                           int W, int C, int Cw, int heads, int wh, int ww, int shift,
+                           void* qkv, void* stream) {
+  const int d = Cw / heads;
+  const grlir::WinMmaArgs a{static_cast<const grlir::bf16*>(x), w, w_sc, w_scol, w_bf16, bqkv,
+                            scale, bias, bands, static_cast<grlir::bf16*>(y), B, H, W, C,
+                            (C + 15) / 16 * 16, Cw, heads, d, wh, ww, shift, heads,
+                            static_cast<grlir::bf16*>(qkv)};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (qkv) {
+    if (d <= 32) return grlir::launch_window_half_mma<32, true>(a, s);
+    if (d <= 64) return grlir::launch_window_half_mma<64, true>(a, s);
+  } else {
+    if (d <= 32) return grlir::launch_window_half_mma<32, false>(a, s);
+    if (d <= 64) return grlir::launch_window_half_mma<64, false>(a, s);
+  }
+  return -1;
+}
+
 extern "C" int grlir_window_half_mma(const void* x, const void* w, long long w_sc,
                                      long long w_scol, int w_bf16, const float* bqkv,
                                      const float* scale, const float* bias, const int* bands,
                                      void* y, int B, int H, int W, int C, int Cw, int heads,
                                      int wh, int ww, int shift, void* stream) {
-  const int d = Cw / heads;
-  const grlir::WinMmaArgs a{static_cast<const grlir::bf16*>(x), w, w_sc, w_scol, w_bf16, bqkv,
-                            scale, bias, bands, static_cast<grlir::bf16*>(y), B, H, W, C,
-                            (C + 15) / 16 * 16, Cw, heads, d, wh, ww, shift, heads};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (d <= 32) return grlir::launch_window_half_mma<32>(a, s);
-  if (d <= 64) return grlir::launch_window_half_mma<64>(a, s);
-  return -1;
+  return window_half_mma(x, w, w_sc, w_scol, w_bf16, bqkv, scale, bias, bands, y, B, H, W, C,
+                         Cw, heads, wh, ww, shift, nullptr, stream);
+}
+
+// The same launch that also writes q, k and v as the kernel rounds them to
+// qkv, (windows, heads, 3, N, DP) bf16 with DP = 32 for d <= 32, else 64
+// (columns past d hold zeros).
+extern "C" int grlir_window_half_mma_qkv(const void* x, const void* w, long long w_sc,
+                                         long long w_scol, int w_bf16, const float* bqkv,
+                                         const float* scale, const float* bias,
+                                         const int* bands, void* y, int B, int H, int W,
+                                         int C, int Cw, int heads, int wh, int ww, int shift,
+                                         void* qkv, void* stream) {
+  return window_half_mma(x, w, w_sc, w_scol, w_bf16, bqkv, scale, bias, bands, y, B, H, W, C,
+                         Cw, heads, wh, ww, shift, qkv, stream);
 }
 
 extern "C" const char* grlir_error_string(int err) {

@@ -15,8 +15,9 @@ TF32 off.
 
 The data pipeline's side, on numpy: training and validation noise (the
 validation noise seeded by sha256 of the file's stem and drawn in CHW
-order, as grlir draws it), the noise-level map and the RGGB mosaic.  The
-JPEG-artifact data's compression is not ported yet (ROADMAP A10).
+order, as grlir draws it), the noise-level map, the RGGB mosaic, and the
+JPEG-artifact data's compression (`jpeg_compress`, in integer numpy by
+`grlir_torch.utils.jpeg`, bit-equal to grlir's cv2 round trip).
 """
 
 from __future__ import annotations
@@ -159,11 +160,13 @@ def noise_level_map(shape_hw, level: float) -> np.ndarray:
 
 
 def jpeg_compress(img_uint8: np.ndarray, quality_factor: int) -> np.ndarray:
-    """grlir's JPEG round trip of the JPEG-artifact data: the colour case
-    is `grlir_torch.utils.jpeg.jpeg_roundtrip`; the data path and the
-    grayscale case are not ported yet."""
-    raise NotImplementedError(
-        "JPEG artifact-removal data is not ported yet (ROADMAP A10)")
+    """The JPEG round trip of an RGB (H, W, 3) or grayscale (H, W, 1) uint8
+    image at `quality_factor`, as grlir's cv2 encode and decode give it."""
+    from grlir_torch.utils.jpeg import jpeg_roundtrip, jpeg_roundtrip_gray
+
+    if img_uint8.ndim == 3 and img_uint8.shape[2] == 3:
+        return jpeg_roundtrip(img_uint8, quality_factor)
+    return jpeg_roundtrip_gray(img_uint8[..., 0], quality_factor)[..., np.newaxis]
 
 
 def mosaic_cfa_bayer(rgb_uint8: np.ndarray):

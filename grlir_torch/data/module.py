@@ -1,6 +1,8 @@
 """Task name -> dataset wiring (the port's copy of `grlir.data.module`):
-one train loader and one val loader per '+'-joined val dataset.  One
-process reads the whole stream (multi-process sharding: ROADMAP A8)."""
+one train loader and one val loader per '+'-joined val dataset.  Across
+processes (`grlir_torch.parallel`) the train loader reads this process's
+stride of the shared shuffled order, with a pipeline seed of its own;
+every process reads the whole of each val set, as grlir's do."""
 
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from grlir_torch.data.tasks import (
     SRDataset,
     TaskConfig,
 )
+from grlir_torch.parallel.mesh import world
 
 TASK_DATASETS = {
     "dn": DnDataset,
@@ -79,7 +82,7 @@ class IRDataModule:
                 or ("process" if self.name == "bsr" else "thread"))
         return DataLoader(self.train_dataset, batch_size, shuffle=True,
                           drop_last=True, num_workers=num_workers,
-                          seed=self._seed, worker_mode=mode, shard=(0, 1))
+                          seed=self._seed, worker_mode=mode, shard=world())
 
     def val_loaders(self, batch_size: int = 1, num_workers: int = 2):
         return {

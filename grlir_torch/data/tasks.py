@@ -1,10 +1,9 @@
-"""Per-task datasets: dn / sr / dm / db / paired (the port's copy of
-`grlir.data.tasks`), on HWC float32 numpy.
+"""Per-task datasets: dn / sr / jpeg / dm / db / paired (the port's copy
+of `grlir.data.tasks`), on HWC float32 numpy.
 
 Samples are dicts: indices, img_lq, img_gt, filenames (+ img_lq_l/r for
 dual-pixel).  The draws and the deterministic validation noise are
-grlir's, so one seed gives the same samples.  JPEG data raises (ROADMAP
-A10).
+grlir's, so one seed gives the same samples.
 """
 
 from __future__ import annotations
@@ -190,15 +189,49 @@ def _sr_test_file(dataset: str, scale: int):
 
 
 class JPEGDataset(ImageBaseDataset):
-    """JPEG artifact removal: not ported yet (its colour and grayscale
-    round trips at the sampled quality factors)."""
+    """JPEG artifact removal: lq is gt's JPEG round trip at the configured
+    quality factor, or in training one drawn from quality_factor_range;
+    patchwise crops and augments before compressing, else after; with
+    noise_level_map, lq gains a 1 - qf/100 channel."""
 
     def __init__(self, cfg: TaskConfig, stage: str, num_train_samples: int = 0):
-        raise NotImplementedError(
-            "JPEG artifact-removal data is not ported yet (ROADMAP A10)")
+        if stage == TRAIN:
+            self.patch_size = cfg.patch_size
+            self.img_info = get_train_file(cfg.dataset)
+        else:
+            self.img_info = get_test_file(cfg.dataset)
+        super().__init__(cfg, stage, num_train_samples)
+
+    def _compress(self, img_gt: np.ndarray):
+        qf = self.cfg.quality_factor
+        if self.stage == TRAIN and len(self.cfg.quality_factor_range) > 0:
+            lo, hi = self.cfg.quality_factor_range
+            qf = int(self.rng.integers(lo, hi + 1))
+        return D.jpeg_compress(img_gt, qf), qf
 
     def __getitem__(self, index: int):
-        raise NotImplementedError
+        index = self._get_index(index)
+        img_gt = self._load_item(index)
+        if self.stage == TRAIN and self.cfg.patchwise:
+            img_gt = self._sample_patch(img_gt)
+            img_gt = self._augment(img_gt)
+            img_lq, qf = self._compress(img_gt)
+        else:
+            img_lq, qf = self._compress(img_gt)
+            img_gt, img_lq = self._sample_patch(img_gt, img_lq)
+            img_lq, img_gt = self._augment([img_lq, img_gt])
+
+        img_lq = to_float(np.ascontiguousarray(img_lq))
+        img_gt = to_float(np.ascontiguousarray(img_gt))
+        if self.cfg.noise_level_map:
+            img_lq = np.concatenate(
+                [img_lq, D.noise_level_map(img_lq.shape[:2], 1 - qf / 100.0)], -1)
+        return {
+            "indices": index,
+            "img_lq": img_lq,
+            "img_gt": img_gt,
+            "filenames": self.img_info[index][0],
+        }
 
 
 class DemosaicDataset(ImageBaseDataset):

@@ -12,6 +12,12 @@ Two protocols (`lightning_parity`):
 - False: one generator forward, whose output the discriminator trains on;
   two power iterations a step.
 
+Across processes (`grlir_torch.parallel`) each holds its rows of the
+global batch; G's gradients are averaged over the world at the generator
+step and D's at the discriminator step (`engines.train.reduce_step`), and
+the metrics are the world's means.  D's spectral-norm vectors are buffers
+that depend on D's weights only, so they stay equal on every process.
+
 The per-loss USM target choice: `use_usm_pixel/percep/gan` pick
 `img_gt_usm` (when the batch has it) over `img_gt` for each loss.
 """
@@ -23,6 +29,7 @@ from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
+from grlir_torch.engines.train import drop_masks, reduce_step
 from grlir_torch.losses import LOSS_FNS
 from grlir_torch.losses.gan import gan_loss
 
@@ -104,9 +111,7 @@ def make_gan_train_step(cfg: GANLossConfig,
         net_g, net_d = state.generator, state.discriminator
         net_g.train()
         net_d.train()
-        masks = None
-        if net_g.cfg.drop_path_rate > 0.0:
-            masks = net_g.draw_drop_masks(lq.shape[0], state.rng, lq.device)
+        masks = drop_masks(net_g, lq.shape[0], state.rng, lq.device)
 
         # ---- generator step: D's parameters take no gradient
         net_d.requires_grad_(False)
@@ -127,6 +132,8 @@ def make_gan_train_step(cfg: GANLossConfig,
         parts["loss_g"] = total
         state.opt_g.zero_grad(set_to_none=True)
         total.backward()
+        g_parts = {k: v.detach() for k, v in parts.items()}
+        reduce_step(net_g, g_parts)
         state.opt_g.step()
         net_d.requires_grad_(True)
 
@@ -144,14 +151,16 @@ def make_gan_train_step(cfg: GANLossConfig,
         l_d = l_real + l_fake
         state.opt_d.zero_grad(set_to_none=True)
         l_d.backward()
+        d_parts = {k: v.detach() for k, v in (
+            ("loss_d_real", l_real), ("loss_d_fake", l_fake),
+            ("out_d_real", real_pred.mean()), ("out_d_fake", fake_pred.mean()),
+            ("loss_d", l_d))}
+        reduce_step(net_d, d_parts)
         state.opt_d.step()
 
         state.sched_g.step()
         state.sched_d.step()
         state.step += 1
-        parts.update(loss_d_real=l_real, loss_d_fake=l_fake,
-                     out_d_real=real_pred.mean(), out_d_fake=fake_pred.mean(),
-                     loss_d=l_d)
-        return {k: v.detach() for k, v in parts.items()}
+        return {**g_parts, **d_parts}
 
     return step_fn

@@ -9,6 +9,12 @@ a .msgpack file) and a pretrained discriminator, and runs the two-optimizer
 step of `grlir_torch.engines.gan` with GT-free NIQE validation,
 best-val_niqe checkpoints and resume.  The perceptual term runs only when
 `vgg_pretrained` names an existing torchvision vgg19 file.
+
+Across processes (`grlir_torch.parallel`) each loads its stride of the
+data (the BSR pipeline's worker processes seeded from its rank's
+pipeline seed), the step averages G's and D's gradients over the world,
+the NIQE values are gathered, and rank 0 alone writes checkpoints; `say`
+is the trainer's print, silent on the other ranks.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import numpy as np
 import torch
 
 
-def run_gan(cfg: dict, out_dir: str, device: torch.device):
+def run_gan(cfg: dict, out_dir: str, device: torch.device, say=print):
     from grlir_torch import serve
     from grlir_torch.data.module import IRDataModule
     from grlir_torch.engines.gan import (GANLossConfig, GANTrainState,
@@ -33,6 +39,7 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
     from grlir_torch.models.grl import GRL, init_weights
     from grlir_torch.optim import build_optimizer
     from grlir_torch.optim.schedules import SCHEDULES
+    from grlir_torch.parallel.mesh import world
     from grlir_torch.train import build_model_config
     from grlir_torch.utils import convert as C
     from grlir_torch.utils.checkpoint import CheckpointManager
@@ -49,7 +56,7 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
                                     skip_connection=dcfg.get("skip_connection", True))
     n_g = sum(p.numel() for p in net_g.parameters())
     n_d = sum(p.numel() for p in net_d.parameters())
-    print(f"[grlir_torch] GAN: G={n_g / 1e6:.2f}M D={n_d / 1e6:.2f}M "
+    say(f"[grlir_torch] GAN: G={n_g / 1e6:.2f}M D={n_d / 1e6:.2f}M "
           f"engine={gcfg.engine} kernels={gcfg.kernels}")
 
     # the reference keeps the hand-off keys at the top level; both places
@@ -60,12 +67,12 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
             eng[k] = cfg[k]
     if eng.get("bsr_psnr_checkpoint"):
         serve.load_checkpoint(net_g, eng["bsr_psnr_checkpoint"])
-        print(f"[grlir_torch] loaded PSNR generator {eng['bsr_psnr_checkpoint']}")
+        say(f"[grlir_torch] loaded PSNR generator {eng['bsr_psnr_checkpoint']}")
     if eng.get("bsr_discriminator_checkpoint"):
         sd = C.strip_prefix(C.load_torch_state_dict(
             osp.expanduser(eng["bsr_discriminator_checkpoint"])), "model_d.")
         net_d.load_state_dict(C.convert_unet_discriminator(sd), strict=True)
-        print("[grlir_torch] loaded pretrained discriminator")
+        say("[grlir_torch] loaded pretrained discriminator")
     net_g.to(device)
     net_d.to(device)
 
@@ -109,12 +116,12 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
         def perceptual_fn(pred, target):  # noqa: F811
             return perceptual_loss(vgg, pred, target, weights)[0]
 
-        print(f"[grlir_torch] perceptual loss active (VGG from {vgg_path})")
+        say(f"[grlir_torch] perceptual loss active (VGG from {vgg_path})")
 
     # the reference's protocol (fresh G forward for the D step, 3 power
     # iterations a step) unless engine.lightning_parity is false
     lightning_parity = bool(eng.get("lightning_parity", True))
-    print("[grlir_torch] GAN protocol: "
+    say("[grlir_torch] GAN protocol: "
           f"{'lightning-parity' if lightning_parity else 'single-forward'}")
     step = make_gan_train_step(gan_cfg, perceptual_fn=perceptual_fn,
                                lightning_parity=lightning_parity)
@@ -127,7 +134,7 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
     )
     if cfg.get("resume", True) and ckpt.latest_step() is not None:
         state.load_state_dicts(ckpt.load())
-        print(f"[grlir_torch] resumed GAN from step {state.step}")
+        say(f"[grlir_torch] resumed GAN from step {state.step}")
 
     dm = IRDataModule({**cfg["data_module"], "worker_mode": cfg.get("worker_mode")},
                       seed=seed)
@@ -145,9 +152,11 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
                 restored = tensor_round(torch.from_numpy(restored)).numpy()
                 acc.update({"niqe": niqe_batch(restored)}, batch["indices"],
                            batch["filenames"])
+            if world()[1] > 1:
+                acc.gather_across_hosts()
             res = acc.compute()
             results[name] = res
-            print(f"[grlir_torch] step {step_num} val[{name}]: "
+            say(f"[grlir_torch] step {step_num} val[{name}]: "
                   f"niqe={res.get('niqe', float('nan')):.4f}")
         net_g.train()
         return results
@@ -173,7 +182,7 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
 
             if (step_num + 1) % log_every == 0:
                 rate = (step_num + 1 - start) / (time.time() - t0)
-                print(f"[grlir_torch] gan step {step_num + 1}/{max_steps} "
+                say(f"[grlir_torch] gan step {step_num + 1}/{max_steps} "
                       f"g={float(metrics['loss_g']):.4f} "
                       f"d={float(metrics['loss_d']):.4f} {rate:.2f} it/s")
 
@@ -184,5 +193,5 @@ def run_gan(cfg: dict, out_dir: str, device: torch.device):
                           {f"val_{k}": v for k, v in first.items()})
     finally:
         loader.close()
-    print("[grlir_torch] gan done")
+    say("[grlir_torch] gan done")
     return state

@@ -1,11 +1,13 @@
 """Whole-image and overlap-tile inference (counterpart of
-`grlir.engines.inference`, without the device mesh).
+`grlir.engines.inference`).
 
 Tiles share one shape and run in fixed-size groups; the overlapping outputs
-are averaged on the host.  On a CUDA device each padded input shape (a
-bucket, or a tile group) runs one CUDA graph of the model's forward,
-captured at its first call: the port's counterpart of grlir's jit, compiled
-once a shape.  The graph replays every kernel of the forward from one
+are averaged on the host.  Given a mesh (`grlir_torch.parallel.mesh`),
+each process runs its rows of every group and the outputs are gathered
+before the blend, as grlir shards a group over its `data` axis.  On a
+CUDA device each padded input shape (a bucket, or a tile group) runs one
+CUDA graph of the model's forward, captured at its first call: the port's
+counterpart of grlir's jit, compiled once a shape.  The graph replays every kernel of the forward from one
 launch, so the host no longer dispatches a thousand operations a forward.
 A CPU device runs the forward eagerly.
 """
@@ -75,17 +77,27 @@ class Restorer:
     one memory pool: they replay one after another, and each replay's
     output is copied out before the next.  The model's weights are read
     where they lie on every replay, so a write to them in place is seen by
-    the next call.  A capture that fails raises."""
+    the next call.  A capture that fails raises.
+
+    mesh: the processes that share each call (all of them call it with the
+    same images): each runs its contiguous rows of every batch or tile
+    group, on graphs of its own, and the outputs are all-gathered; tile
+    groups then hold max(tile_batch, mesh.size) tiles, and every batch
+    must split evenly over the processes."""
 
     def __init__(self, model: Callable[[torch.Tensor], torch.Tensor],
                  device, scale: int = 1, tile: int = 0,
                  tile_overlap: int = 0, tile_batch: int = 1,
-                 shape_bucket: int = 0):
+                 shape_bucket: int = 0, mesh=None):
         self.model = model
         self.device = torch.device(device)
         self.scale = scale
         self.tile = tile
         self.tile_overlap = tile_overlap
+        # across a mesh's processes a group holds at least a row a process
+        self.mesh = mesh
+        if mesh is not None:
+            tile_batch = max(tile_batch, mesh.size)
         self.tile_batch = tile_batch
         self.shape_bucket = shape_bucket
         # padded input shape -> its captured forward (CUDA only)
@@ -128,18 +140,29 @@ class Restorer:
             g.graph.replay()
         return g.static_out.float().cpu().numpy()
 
+    def _apply(self, img: np.ndarray) -> np.ndarray:
+        """The model on a batch: all of it, or across the mesh this
+        process's rows, gathered."""
+        if self.mesh is None:
+            return self._run(img)
+        from grlir_torch.parallel.mesh import all_gather_rows, shard_rows
+
+        rows = shard_rows(img.shape[0], self.mesh.rank, self.mesh.size)
+        y = torch.from_numpy(self._run(img[rows]))
+        return all_gather_rows(y).numpy()
+
     def __call__(self, img: np.ndarray) -> np.ndarray:
         """img: (B, H, W, C) float32 in [0, 1] -> (B, H*scale, W*scale, C_out)."""
         if self.tile == 0:
             if self.shape_bucket:
                 return self._forward_bucketed(img)
-            return self._run(img)
+            return self._apply(img)
         return self.forward_tile(img)
 
     def _forward_bucketed(self, img: np.ndarray) -> np.ndarray:
         _, h, w, _ = img.shape
         m = self.shape_bucket
-        out = self._run(reflect_pad_to(img, (h + (-h % m), w + (-w % m))))
+        out = self._apply(reflect_pad_to(img, (h + (-h % m), w + (-w % m))))
         return out[:, :h * self.scale, :w * self.scale]
 
     def forward_tile(self, img: np.ndarray) -> np.ndarray:
@@ -161,7 +184,7 @@ class Restorer:
             if pad:
                 zeros = np.zeros((pad, *chunk.shape[1:]), chunk.dtype)
                 chunk = np.concatenate([chunk, zeros], 0)
-            y = self._run(chunk)
+            y = self._apply(chunk)
             outs.append(y[:group - pad] if pad else y)
         out_patches = np.concatenate(outs, 0)
 

@@ -5,7 +5,9 @@ Each random draw is split from the arithmetic that uses it: `draw_crop`
 and `draw_mixup` take an explicit numpy Generator (Beta(1.2, 1.2) has no
 generator argument in torch.distributions), and `crop_pair` and `mixup`
 are deterministic functions of the draws, so tests hold the arithmetic
-equal to grlir's on injected draws.
+equal to grlir's on injected draws.  Across processes every draw is made
+for the global batch from the generator every process holds alike: the
+crop is one for the batch, and MixUp mixes the gathered global batch.
 """
 
 from __future__ import annotations
@@ -31,6 +33,18 @@ def mixup(lq: torch.Tensor, gt: torch.Tensor, perm, lam):
     gt = lam * gt + (1 - lam) * gt[perm]
     lq = lam * lq + (1 - lam) * lq[perm]
     return lq, gt
+
+
+def _global_mixup(lq: torch.Tensor, gt: torch.Tensor, rng: np.random.Generator):
+    """MixUp over the global batch, as grlir permutes its sharded global
+    batch: across processes each gathers every process's rows, mixes them
+    with draws every process makes alike, and keeps its own rows."""
+    from grlir_torch.parallel.mesh import all_gather_rows, shard_rows
+
+    lq_all, gt_all = all_gather_rows(lq), all_gather_rows(gt)
+    lq_all, gt_all = mixup(lq_all, gt_all, *draw_mixup(rng, gt_all.shape[0]))
+    rows = shard_rows(gt_all.shape[0])
+    return lq_all[rows], gt_all[rows]
 
 
 def draw_crop(rng: np.random.Generator, height: int, width: int,
@@ -83,7 +97,7 @@ def make_train_preprocess(
             x0, y0 = draw_crop(rng, lq.shape[1], lq.shape[2], crop_patch)
             lq, gt = crop_pair(lq, gt, crop_patch, scale, x0, y0)
         if use_mixup and (step is None or step >= mixup_start_step):
-            lq, gt = mixup(lq, gt, *draw_mixup(rng, gt.shape[0]))
+            lq, gt = _global_mixup(lq, gt, rng)
         return lq, gt
 
     return preprocess

@@ -2,6 +2,10 @@
 preprocess, forward in train() mode, weighted loss, backward, optimizer
 step and LR-scheduler step, on the model's device.
 
+Across processes (`grlir_torch.parallel`) each holds its rows of the
+global batch and the step averages the gradients over the world before
+the update (`reduce_step`).
+
 `TrainState` holds what a step changes: the model, its optimizer and LR
 scheduler, the step count, and the run's two generators (a torch one for
 the stochastic-depth masks, a numpy one for the preprocessing draws).
@@ -34,6 +38,34 @@ class TrainState:
                 "scheduler": self.scheduler.state_dict()}
 
 
+def reduce_step(model: torch.nn.Module, metrics: Dict[str, torch.Tensor]) -> None:
+    """Across processes: the model's gradients and the step's metrics, in
+    place, become their means over the world (one all-reduce), so every
+    process takes the update of the global batch's mean loss, as grlir's
+    sharded step does.  An explicit reduce, not DistributedDataParallel:
+    remat's recompute, the GAN step's two generator forwards and its frozen
+    discriminator each break DDP's one-forward-a-backward reducer."""
+    from grlir_torch.parallel.mesh import all_reduce_mean_
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    all_reduce_mean_(grads + list(metrics.values()))
+
+
+def drop_masks(model: torch.nn.Module, rows: int, generator: torch.Generator,
+               device) -> Optional[torch.Tensor]:
+    """A GRL's stochastic-depth masks for a step on this process's `rows`:
+    drawn for the global batch from the generator every process holds
+    alike and cut to this process's rows (`shard_rows`), so the processes
+    together draw what one process draws on the global batch; None where
+    no block drops."""
+    from grlir_torch.parallel.mesh import shard_rows, world
+
+    if model.cfg.drop_path_rate <= 0.0:
+        return None
+    n = rows * world()[1]
+    return model.draw_drop_masks(n, generator, device, rows=shard_rows(n))
+
+
 def build_loss(loss_cfg: Mapping[str, float]):
     """{loss_name: weight} -> {name: (weight, fn)}."""
     return {name: (w, LOSS_FNS[name]) for name, w in loss_cfg.items()}
@@ -64,15 +96,17 @@ def make_train_step(
             lq, gt = batch["img_lq"], batch["img_gt"]
         model = state.model
         model.train()
-        pred = model(lq, generator=state.generator)
+        pred = model(lq, drop_masks=drop_masks(model, lq.shape[0], state.generator, lq.device))
         total, parts = weighted_loss(losses, pred, gt)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        metrics = {"loss": total.detach(),
+                   **{f"loss_{k}": v.detach() for k, v in parts.items()}}
+        reduce_step(model, metrics)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {"loss": total.detach(),
-                **{f"loss_{k}": v.detach() for k, v in parts.items()}}
+        return metrics
 
     return step_fn
 

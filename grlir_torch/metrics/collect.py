@@ -3,8 +3,8 @@ port's copy of `grlir.metrics.collect`.
 
 Shards can push overlapping (value, index) pairs, as a distributed
 sampler's padding repeats samples; `compute` keeps the first occurrence of
-each index.  The gather across processes waits for the data-parallel slice
-(ROADMAP A8): one process needs none.
+each index.  `gather_across_hosts` all-gathers every process's vectors
+first.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from collections import OrderedDict
 from typing import Dict, List, Sequence
 
 import numpy as np
-import torch
 
 
 def dedup_average(values: np.ndarray, idx: np.ndarray) -> float:
@@ -46,14 +45,21 @@ class MetricAccumulator:
                 [filenames] if isinstance(filenames, str) else list(filenames))
 
     def gather_across_hosts(self):
-        """With one process there is nothing to gather.  Several ranks of
-        torch.distributed raise: their all-gather comes with the
-        data-parallel slice (ROADMAP A8)."""
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "gathering metrics across processes is not ported yet "
-                "(ROADMAP A8)")
+        """All-gather the (value, index) vectors of every process, in rank
+        order, as grlir does across hosts; `compute`'s dedup keeps each
+        index once.  The processes may hold vectors of unequal lengths.
+        Without a process group there is nothing to gather."""
+        from grlir_torch.parallel import mesh
+
+        if not mesh.grouped():
+            return
+        # float64 and int64 on every process, whatever a metric returns and
+        # even where a process holds no vector (exact for fp32 values)
+        for n in self.names:
+            local = np.concatenate(self._values[n]) if self._values[n] else np.zeros(0)
+            self._values[n] = [np.concatenate(mesh.all_gather_ragged(local.astype(np.float64)))]
+        local_idx = np.concatenate(self._idx) if self._idx else np.zeros(0)
+        self._idx = [np.concatenate(mesh.all_gather_ragged(local_idx.astype(np.int64)))]
 
     def compute(self) -> Dict[str, float]:
         idx = np.concatenate(self._idx) if self._idx else np.zeros(0, np.int64)

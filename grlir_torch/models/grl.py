@@ -298,15 +298,18 @@ class GRL(nn.Module):
         return self._mean[key]
 
     def draw_drop_masks(self, batch: int, generator: Optional[torch.Generator] = None,
-                        device=None) -> torch.Tensor:
+                        device=None, rows: Optional[slice] = None) -> torch.Tensor:
         """(sum(depths), 2, batch) bool stochastic-depth masks, each set with
         probability 1 - its block's rate, drawn on the CPU from
         `generator` (torch's default one when None) and moved to
-        `device`."""
+        `device`; `rows`, when given, keeps only those of the batch (a
+        process's share of a global batch: `engines.train.drop_masks`)."""
         keep = 1.0 - torch.tensor(self.cfg.drop_path_rates, dtype=torch.float64)
         u = torch.rand((len(keep), 2, batch), generator=generator,
                        dtype=torch.float64)
         masks = u < keep[:, None, None]
+        if rows is not None:
+            masks = masks[:, :, rows]
         if device is not None and torch.device(device).type == "cuda":
             # from pinned memory, so that the copy does not wait for the
             # work already queued on the device

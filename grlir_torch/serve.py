@@ -55,7 +55,7 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
         if saved is None:
             raise NotImplementedError(
                 f"{path}: orbax checkpoint directories are not read by the port "
-                "yet (ROADMAP A7); convert the released .ckpt with "
+                "yet (ROADMAP A10b); convert the released .ckpt with "
                 "`python -m grlir.utils.convert` to a .msgpack file")
         try:
             model.load_state_dict(saved["model"], strict=True)

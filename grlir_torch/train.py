@@ -13,9 +13,17 @@ validates once.
 
 `device=cuda|cpu` (default cuda) is read off the command line before the
 config is composed.  The run is on the card unless it asks for the CPU; a
-missing card raises.  One process runs the whole batch (data parallelism:
-ROADMAP A8).  `engine: base_gan` (real-world SR stage 2) runs
+missing card raises.  `engine: base_gan` (real-world SR stage 2) runs
 `grlir_torch.engines.gan_runner.run_gan`.
+
+Across processes, one a device: start one on each with GRLIR_COORDINATOR
+(host:port), GRLIR_NUM_PROCESSES and GRLIR_PROCESS_ID, or under torchrun
+with GRLIR_DISTRIBUTED=1 (`grlir_torch.parallel.launch`).  `batch_size` is
+then a process's batch, as grlir's is a device's: the global batch is
+batch_size x processes.  Each process loads its stride of the data, the
+gradients are averaged over the processes at every step, validation
+metrics are gathered, and rank 0 alone prints, writes results.csv, images
+and checkpoints.
 """
 
 from __future__ import annotations
@@ -93,6 +101,10 @@ def progressive_host_rows(per_dev_target: int, batch_size: int,
     return per_dev * (n_devices // n_processes)
 
 
+def _quiet(*args, **kwargs) -> None:
+    """print on the ranks that do not log."""
+
+
 def split_device(argv: List[str]) -> Tuple[List[str], torch.device]:
     """(the config tokens, the device of `device=...`, default cuda)."""
     rest, device = [], "cuda"
@@ -124,7 +136,13 @@ def main(argv=None):
     from grlir_torch.utils.checkpoint import CheckpointManager
     from grlir_torch.utils.profiling import MetricsLogger
 
+    from grlir_torch.parallel.launch import init_distributed
+    from grlir_torch.parallel.mesh import world
+
     tokens, device = split_device(list(argv if argv is not None else sys.argv[1:]))
+    device = init_distributed(device)
+    rank, n_proc = world()
+    say = print if rank == 0 else _quiet
     cfg = load_config(tokens)
     seed = cfg.get("seed", 1234)
     task = cfg["data_module"]["name"]
@@ -135,12 +153,12 @@ def main(argv=None):
         osp.join(cfg["io"]["base_output_path"], cfg["tag"],
                  f"version_{cfg['io']['version']}"))
     os.makedirs(out_dir, exist_ok=True)
-    print(f"[grlir_torch] output: {out_dir} device: {device}")
+    say(f"[grlir_torch] output: {out_dir} device: {device}")
 
     if cfg.get("engine", {}).get("name") == "base_gan":
         from grlir_torch.engines.gan_runner import run_gan
 
-        return run_gan(cfg, out_dir, device)
+        return run_gan(cfg, out_dir, device, say)
 
     # ---- model
     mcfg = build_model_config(cfg)
@@ -148,12 +166,12 @@ def main(argv=None):
     # parameters' device), then moved
     model = init_weights(GRL(mcfg), torch.Generator().manual_seed(seed)).to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[grlir_torch] model {cfg['model'].get('name')} "
+    say(f"[grlir_torch] model {cfg['model'].get('name')} "
           f"params={n_params / 1e6:.3f}M dtype={cfg.get('dtype', 'float32')} "
           f"engine={mcfg.engine} kernels={mcfg.kernels}")
     if cfg.get("pretrained_checkpoint"):
         serve.load_checkpoint(model, cfg["pretrained_checkpoint"])
-        print(f"[grlir_torch] loaded pretrained {cfg['pretrained_checkpoint']}")
+        say(f"[grlir_torch] loaded pretrained {cfg['pretrained_checkpoint']}")
 
     # ---- data
     dm = IRDataModule({**cfg["data_module"],
@@ -182,8 +200,9 @@ def main(argv=None):
     prog_batches = list(cfg.get("batch_sizes") or [])
     prog_patches = list(cfg.get("patch_sizes") or [])
 
-    # MixUp starts after six virtual epochs ("current_epoch > 5", 0-based)
-    global_batch = int(cfg["batch_size"])
+    # MixUp starts after six virtual epochs ("current_epoch > 5", 0-based);
+    # batch_size is a process's, as grlir's is a device's
+    global_batch = int(cfg["batch_size"]) * n_proc
     steps_per_epoch = max(1, len(dm.train_dataset) // max(1, global_batch))
     mixup_start = 6 * steps_per_epoch if cfg.get("mixup", False) else 0
 
@@ -197,7 +216,7 @@ def main(argv=None):
 
     train_step = build_step()
 
-    logger = MetricsLogger(osp.join(out_dir, "metrics.jsonl"))
+    logger = MetricsLogger(osp.join(out_dir, "metrics.jsonl")) if rank == 0 else None
     ckpt = CheckpointManager(
         osp.join(out_dir, "checkpoints"),
         monitor=cfg["model_checkpoint"]["monitor"],
@@ -206,7 +225,7 @@ def main(argv=None):
     )
     if cfg.get("resume", True) and ckpt.latest_step() is not None:
         state.step = ckpt.restore(model, optimizer, scheduler)
-        print(f"[grlir_torch] resumed from step {state.step}")
+        say(f"[grlir_torch] resumed from step {state.step}")
 
     metric_names = cfg["metric"]["val"]
     monitor = cfg["model_checkpoint"]["monitor"].replace("val_", "")
@@ -223,14 +242,16 @@ def main(argv=None):
             res = validate(
                 restorer, loader, metric_names, task, scale, blur_kernel,
                 save_dir=osp.join(out_dir, "images", name)
-                if cfg.get("save_images") else None,
+                if cfg.get("save_images") and rank == 0 else None,
+                gather_across_hosts=n_proc > 1,
                 step=step,
             )
             all_results[name] = res
-            write_results_csv(osp.join(out_dir, "results.csv"), cfg["tag"],
-                              name, res, step)
+            if rank == 0:
+                write_results_csv(osp.join(out_dir, "results.csv"), cfg["tag"],
+                                  name, res, step)
             line = " ".join(f"{k}={v:.4f}" for k, v in res.items())
-            print(f"[grlir_torch] step {step} val[{name}]: {line}")
+            say(f"[grlir_torch] step {step} val[{name}]: {line}")
         model.train()
         # best-so-far on the monitored metric of the first val set
         first = next(iter(all_results.values()), {})
@@ -240,13 +261,14 @@ def main(argv=None):
             if (best["value"] is None or (mode == "max" and cur > best["value"])
                     or (mode == "min" and cur < best["value"])):
                 best.update(value=cur, step=step)
-            print(f"[grlir_torch] best {monitor}={best['value']:.4f} "
+            say(f"[grlir_torch] best {monitor}={best['value']:.4f} "
                   f"@ step {best['step']}")
         return all_results
 
     if not cfg.get("training", True):
         run_validation(state.step)
-        logger.close()
+        if logger is not None:
+            logger.close()
         return
 
     # ---- training loop
@@ -271,12 +293,12 @@ def main(argv=None):
                         else None)
                 train_step = build_step(
                     crop if crop and crop < cfg["patch_size"] else None)
-                print(f"[grlir_torch] progressive stage {stage}: "
+                say(f"[grlir_torch] progressive stage {stage}: "
                       f"batch={prog_batches[stage] if stage < len(prog_batches) else '-'} "
                       f"patch={crop}")
             if stage < len(prog_batches):
                 bs = progressive_host_rows(prog_batches[stage],
-                                           int(cfg["batch_size"]), 1, 1)
+                                           int(cfg["batch_size"]), n_proc, n_proc)
                 batch = {k: v[:bs] for k, v in batch.items()}
         batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                  for k, v in batch.items()}
@@ -286,8 +308,9 @@ def main(argv=None):
             loss = float(metrics["loss"])
             lr = schedule(step)   # the LR of the update just made
             rate = (step + 1 - start_step) / (time.time() - t0)
-            logger.log(step + 1, loss=loss, lr=lr, steps_per_sec=rate)
-            print(f"[grlir_torch] step {step + 1}/{max_steps} loss={loss:.4f} "
+            if logger is not None:
+                logger.log(step + 1, loss=loss, lr=lr, steps_per_sec=rate)
+            say(f"[grlir_torch] step {step + 1}/{max_steps} loss={loss:.4f} "
                   f"lr={lr:.2e} {rate:.2f} it/s")
 
         if (step + 1) % val_every == 0 or (step + 1) == max_steps:
@@ -299,13 +322,14 @@ def main(argv=None):
             ckpt.save(step + 1, state.state_dicts(), dict(first))
 
     loader.close()
-    logger.close()
+    if logger is not None:
+        logger.close()
     csv_path = osp.join(out_dir, "results.csv")
-    if osp.exists(csv_path):
+    if rank == 0 and osp.exists(csv_path):
         from grlir_torch.utils.report import parse_csv
 
-        print(parse_csv(csv_path))
-    print("[grlir_torch] done")
+        say(parse_csv(csv_path))
+    say("[grlir_torch] done")
 
 
 if __name__ == "__main__":

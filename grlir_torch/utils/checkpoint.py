@@ -15,6 +15,9 @@ metric stay, a later step winning a tie.  grlir always hands orbax a metrics
 dict (empty when a save has none), so a checkpoint without the monitored
 metric ranks last in either mode; the same sequence of saves keeps the same
 steps here.
+
+Across processes (`grlir_torch.parallel`) rank 0 writes and every process
+reads, so a run resumes on another number of processes.
 """
 
 from __future__ import annotations
@@ -94,7 +97,16 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any],
              metrics: Optional[dict] = None):
-        """state: {"model", "optimizer", "scheduler"} state dicts."""
+        """state: {"model", "optimizer", "scheduler"} state dicts.  Across
+        processes every one calls save with the same state: rank 0 writes,
+        and all wait for it, so any may read the checkpoint after."""
+        from grlir_torch.parallel.mesh import barrier, world
+
+        if world()[0] == 0:
+            self._write(step, state, metrics)
+        barrier()
+
+    def _write(self, step: int, state: Dict[str, Any], metrics: Optional[dict]):
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
         final = self._path(step)
         tmp = f"{final}.tmp{os.getpid()}"

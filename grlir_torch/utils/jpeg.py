@@ -17,8 +17,10 @@ is left out; everything that rounds is kept:
    the chroma is at most 2 samples wide;
 6. YCbCr -> RGB in fixed point (jdcolor.c).
 
-tests/test_torch_bsr.py holds `jpeg_roundtrip` bit-equal to
-`cv2.imdecode(cv2.imencode(".jpg", ...))`.
+A one-component (grayscale) image takes steps 3 and 4 alone, with the
+luminance table (`jpeg_roundtrip_gray`).  tests/test_torch_bsr.py holds
+`jpeg_roundtrip` and tests/test_torch_jpeg.py `jpeg_roundtrip_gray`
+bit-equal to `cv2.imdecode(cv2.imencode(".jpg", ...))`.
 """
 
 from __future__ import annotations
@@ -262,6 +264,16 @@ def jpeg_roundtrip(rgb: np.ndarray, quality: int) -> np.ndarray:
                      >> _SCALEBITS)
     b_out = y_dec + ((_fix16(1.77200) * cb_d + _ONE_HALF) >> _SCALEBITS)
     return np.clip(np.stack([r_out, g_out, b_out], -1), 0, 255).astype(np.uint8)
+
+
+def jpeg_roundtrip_gray(gray: np.ndarray, quality: int) -> np.ndarray:
+    """(H, W) uint8 -> the uint8 image that a one-component (grayscale)
+    JPEG encode at `quality` and a decode give: the luminance table, no
+    colour transform and no subsampling, edges replicated to whole
+    blocks."""
+    h, w = gray.shape
+    plane = _replicate(gray.astype(np.int64), -(-h // 8) * 8, -(-w // 8) * 8)
+    return _code_plane(plane, quant_table(quality, False))[:h, :w].astype(np.uint8)
 
 
 def jpeg_float(img: np.ndarray, quality: int) -> np.ndarray:

@@ -22,7 +22,9 @@ own q, k, v; its q, k, v bf16 flips against the plain path's, both counted
 against a float64-summed projection; the share of outputs off by more
 than 1e-2 end to end), also over the twelve input draws of `b3_spread`;
 B5's bf16 route is held to the same gates over the twelve draws of
-`b5_spread` at GRL-base's three steps (ROADMAP C5).
+`b5_spread` at GRL-base's three steps (ROADMAP C5), and B1's bf16 route
+to them over the twelve draws of `b1_spread` at GRL-base-bsr's window 16
+(ROADMAP C9); B3 also at the JPEG experiment's window 36 on 288^2.
 The fused engines' kernels run at GRL-S's and GRL-base's
 shapes and at ragged ones: B5 (`flash_rect_attention`, bf16 on tensor
 cores, fp32 on CUDA cores, counted by route), B6
@@ -37,7 +39,7 @@ import numpy as np
 import pytest
 import torch
 
-from grlir_torch import b3_spread, b5_spread
+from grlir_torch import b1_spread, b3_spread, b5_spread
 from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as tba
 from grlir_torch.ops import flash_attention as tfa
@@ -176,10 +178,11 @@ def _expect_routes(fns, routes, dtype):
     assert _routes(fns) == routes
 
 
-def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC, heads=BH, d=BD):
+def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC, heads=BH, d=BD,
+                batch=B):
     rng = np.random.default_rng(6)
     n = window[0] * window[1]
-    x = _rand(rng, B, H, W, c).to(dev, dtype)
+    x = _rand(rng, batch, H, W, c).to(dev, dtype)
     w, b, ls, _ = _base_weights(rng, dev, c, heads, d)
     bias = 16 * torch.sigmoid(_rand(rng, heads, n, n)).to(dev)
     bands = _bands(rng, (H // window[0]) * (W // window[1]), n, dev) if shift else None
@@ -191,18 +194,19 @@ def _run_window(dev, dtype, window, shift, H, W, launches_of, c=BC, heads=BH, d=
     assert launches_of.launches == before + 1
     _expect_routes([launches_of], routes, dtype)
     if launches_of is tba.window_half_large and dtype == torch.bfloat16:
-        _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want)
+        _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want, window)
         return
     _assert_close(got, want, dtype, ulp_gate=launches_of is tba.window_half)
 
 
-def _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want):
+def _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want,
+                      window=b3_spread.WINDOW):
     """B3's bf16 route against its stage gates (`b3_spread.stage_failures`)
     in place of a flat end-to-end bound: at logit scale 100 a one-ulp flip
     of a large q or k value in a near-tied row moves y by several ulps
     (ROADMAP C4).  The gated y is the wrapper's, and the stage split's
     plain y is the plain version's."""
-    st = b3_spread.b3_stage_check(x, w, b, ls, bias, bands, shift, heads)
+    st = b3_spread.b3_stage_check(x, w, b, ls, bias, bands, shift, heads, window)
     assert torch.equal(st["y"], got.float())
     assert torch.equal(st["y_plain"], want.float())
     assert not b3_spread.stage_failures(st), b3_spread.stage_line(st)
@@ -440,6 +444,42 @@ def test_window_large_bf16_stage_gates(cuda, seed, shift, c, heads, d):
     torch.cuda.synchronize()
     _expect_routes([tba.window_half_large], routes, torch.bfloat16)
     _assert_b3_stages(x, w, b, ls, bias, bands, shift, heads, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", b1_spread.SHIFTS)
+@pytest.mark.parametrize("seed", b1_spread.SEEDS)
+def test_window16_bf16_stage_gates(cuda, seed, shift):
+    """B1's bf16 route on the twelve input draws of `b1_spread` (six seeds,
+    shifted by 8 and not, GRL-base-bsr's window half at 256^2: window 16,
+    3 heads of d = 30, C = 180): every draw within the three stage gates of
+    `b3_spread` (ROADMAP C9).  The gated y is the wrapper's, and the stage
+    split's plain y is the plain version's."""
+    x, w, b, ls, bias, bands = b1_spread.draw(seed, shift, cuda)
+    routes = _routes([tba.window_half])
+    with torch.no_grad():
+        got = tba.window_half(x, w, b, ls, bias, b1_spread.WINDOW, bands, shift)
+        want = tba.window_half(x, w, b, ls, bias, b1_spread.WINDOW, bands, shift,
+                               kernels=False)
+    torch.cuda.synchronize()
+    _expect_routes([tba.window_half], routes, torch.bfloat16)
+    st = b1_spread.b1_stage_check(x, w, b, ls, bias, bands, shift, b1_spread.HEADS)
+    assert torch.equal(st["y"], got.float())
+    assert torch.equal(st["y_plain"], want.float())
+    assert not b3_spread.stage_failures(st), b3_spread.stage_line(st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 18])
+def test_window_large_kernel_at_jpeg_geometry(cuda, dtype, shift):
+    """B3 at the JPEG experiment's window half (jpeg/grl_p288: GRL-S width,
+    window 36, N = 1296, whose last q tile of 64 is ragged at 16 rows; 2
+    heads of d = 32, C = 128, one 288^2 patch), shifted by 18 and not; bf16
+    on the stage gates."""
+    assert tba.window_route((288, 288), (36, 36), 2) == "large"
+    _run_window(cuda, dtype, (36, 36), shift, 288, 288, tba.window_half_large, c=128,
+                heads=2, d=32, batch=1)
 
 
 @pytest.mark.cuda

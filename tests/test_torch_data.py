@@ -155,15 +155,28 @@ def test_npy_cache_is_written_atomically_and_reread(data_root, tmp_path, monkeyp
 
 
 def test_jpeg_and_bsr_raise(data_root, tmp_path, monkeypatch):
-    """JPEG data still raises (ROADMAP A10); the bsr data module no longer
-    does: its first train batches (process workers by default, here one
-    thread) equal grlir's within the BSR data's JPEG gate
+    """Neither the jpeg nor the bsr data module raises any more.  The jpeg
+    module's train batches (crossing an epoch, a quality drawn from a
+    range, the noise-level map) and val batches are bit-equal to grlir's;
+    the bsr module's first train batches (process workers by default, here
+    one thread) equal grlir's within the BSR data's JPEG gate
     (tests/test_torch_bsr.py), the generator-driven parts exactly."""
     from test_torch_bsr import FLOAT_ATOL, USM_NEAR, JpegGate
 
-    with pytest.raises(NotImplementedError, match="A10"):
-        TModule({"name": "jpeg", "train": {"dataset": "div2k"}})
     monkeypatch.setenv("GRLIR_CACHE_DIR", str(tmp_path / "cache"))
+    jpeg = {"name": "jpeg", "patch_size": 16, "quality_factor": 10,
+            "quality_factor_range": [10, 40], "noise_level_map": True,
+            "train": {"dataset": "div2k"}, "val": {"dataset": "cbsd68"}}
+    batches = {}
+    for side, module, c in (("grlir", JModule, dict(jpeg, use_cache=False)),
+                            ("port", TModule, jpeg)):
+        dm = module(c, seed=SEED)
+        dm.train_dataset.seed(11)
+        train = _first(dm.train_loader(2, num_workers=1), 3)
+        val = [b for loader in dm.val_loaders(num_workers=1).values() for b in loader]
+        batches[side] = (train, val)
+    _assert_batches_equal(batches["port"][0], batches["grlir"][0])
+    _assert_batches_equal(batches["port"][1], batches["grlir"][1])
     cfg = {"name": "bsr", "scale": 4, "patch_size": 8, "worker_mode": "thread",
            "train": {"dataset": "div2k"}}
     batches = {}

@@ -80,10 +80,23 @@ def test_accumulator_matches_grlir():
 
 
 def test_gather_across_ranks_waits_for_data_parallel(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        _fill(TC).gather_across_hosts()
+    """Rank 0 of two gathers (the all-gather faked: the other rank holds
+    indices 5 again and 7): its metrics are grlir's dedup over both ranks'
+    vectors in rank order.  tests/test_torch_parallel.py runs the real
+    gather over gloo ranks."""
+    from grlir_torch.parallel import mesh
+
+    other = [np.array([12.0, 35.0]), np.array([0.2, 0.6]), np.array([5, 7])]
+    calls = iter(other)
+    monkeypatch.setattr(mesh, "grouped", lambda: True)
+    monkeypatch.setattr(mesh, "world", lambda: (0, 2))
+    monkeypatch.setattr(mesh, "all_gather_ragged", lambda a: [a, next(calls)])
+    got = _fill(TC)
+    got.gather_across_hosts()
+    want = _fill(JC)
+    want.update({"psnr": other[0], "ssim": other[1]}, other[2])
+    for k, v in want.compute().items():
+        assert got.compute()[k] == pytest.approx(v, rel=1e-12), k
 
 
 def test_parse_csv_matches_grlir(tmp_path):

@@ -13,6 +13,7 @@ import grlir_torch, grlir_torch.models.grl, grlir_torch.ops.block_attn
 import grlir_torch.engines.inference, grlir_torch.serve
 import grlir_torch.engines.validate, grlir_torch.utils.msgpack_params
 import grlir_torch.train, grlir_torch.configs, grlir_torch.data.module
+import grlir_torch.parallel.launch, grlir_torch.parallel.mesh, grlir_torch.b1_spread
 print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py", "PIL",
                          "optax", "orbax") if m in sys.modules))
 """
@@ -27,6 +28,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert callable(chip_smoke.main)
+assert {"grlir_torch.parallel.launch", "grlir_torch.parallel.mesh",
+        "grlir_torch.b1_spread"} <= set(names), names
 print(len(names))
 print(sorted(m for m in sys.modules if m == "grlir" or m.startswith("grlir.")
              or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py",

@@ -1,8 +1,10 @@
 """The port's trainer CLI end to end on the CPU, on a synthetic data root:
 `python -m grlir_torch.train ... device=cpu` trains, validates, saves
 checkpoints and images; a second run resumes; an eval-only run; a
-progressive stage change; and eval-only metrics of grlir's CLI and the
-port's on the same `.pth` within 1e-4 dB."""
+progressive stage change; eval-only metrics of grlir's CLI and the
+port's on the same `.pth` within 1e-4 dB; and the JPEG experiment
+(jpeg/grl_p288's geometry: window 36, fixed 72x144 stripes, anchor df 4)
+trains and validates at a cut depth and width on 144^2 patches."""
 
 import importlib
 import json
@@ -129,3 +131,33 @@ def test_eval_only_metrics_equal_grlir_cli(data_root, tmp_path, monkeypatch):
     assert sorted(got["port"]) == sorted(got["grlir"]) == ["psnr", "psnr_y", "ssim", "ssim_y"]
     for k, v in got["grlir"].items():
         assert abs(got["port"][k] - v) <= EVAL_TOL, (k, got["port"][k], v)
+
+
+def test_jpeg_experiment_trains(data_root, tmp_path, capsys):
+    """experiment=jpeg/grl_p288 on the CPU: two steps and a validation on
+    LIVE1 at the recipe's geometry (window 36: the large-window route;
+    stripes 72x144 at df 4: the plain stripe half), cut to one block at
+    embed 32 and 144^2 patches (a step of two blocks takes 11 s on one
+    core); the val image runs as tiles of 144^2 (the recipe's tile of 576
+    clipped to the image)."""
+    from grlir_torch.ops import block_attn as ba
+    from grlir_torch.train import main
+
+    rng = np.random.default_rng(3)
+    (data_root / "test_set" / "LIVE1").mkdir(parents=True)
+    imwrite(str(data_root / "test_set" / "LIVE1" / "v0.png"),
+            (rng.random((144, 168, 3)) * 255).astype(np.uint8))
+    (data_root / "image_info" / "LIVE1").mkdir(parents=True)
+    (data_root / "image_info" / "LIVE1" / "test.json").write_text(
+        json.dumps([{"path": "LIVE1/v0.png"}]))
+    assert ba.window_route((144, 144), (36, 36), 2) == "large"
+    assert ba.stripe_route((144, 144), (72, 144), 4, 2) is None
+    main(["experiment=jpeg/grl_p288", "tag=jpeg", f"io.base_output_path={tmp_path}/out",
+          "data_module.train.dataset=div2k", "model.embed_dim=32", "model.depths=[1]",
+          "model.num_heads_window=[2]", "model.num_heads_stripe=[2]", "patch_size=144",
+          "trainer.max_steps=2", "trainer.log_every_n_steps=1", "num_workers=1",
+          "device=cpu"])
+    text = capsys.readouterr().out
+    assert "step 2/2 loss=" in text and "val[live1]" in text and "psnr=" in text, text
+    run = tmp_path / "out" / "jpeg" / "version_0"
+    assert sorted(os.listdir(run / "checkpoints")) == ["step_2"]
