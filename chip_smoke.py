@@ -128,6 +128,26 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      one process on the global batch at that module's gates, both ranks
      launching B1 and B2.  The JSON line adds `jpeg_launches` (the JPEG
      CLI run) and `parallel_launches` (the NCCL CLI run, each gloo rank).
+ 11. the rest of GRL's model surface (slice 12, `grlir_torch.ablation_cells`):
+     GRL-S x4 at 256^2, bs1, bf16 with each ablation switch on its own, on
+     the engine where it reaches a kernel (fused for the branches grlir
+     sends down its legacy route, which project qkv first: B6 on the window
+     half, B7a twice on an anchored stripe half, both also held against
+     their plain versions in phase 5 on that route's inputs, the projected
+     qkv and GRL-S 256^2's d-major 512-token stripes; v3 for the anchor,
+     output-projection and last-conv variants: B1 and B2): launches a
+     forward against the prediction, kernels vs kernels=False PSNR >= 60 dB
+     and fp32 64^2 max|diff| <= 5e-4, the forward timed, peak memory;
+ 12. classification training: the train phase's CLI with loss=l1_ce on gray
+     images (3 steps, validation on the formed image, a resume to 6), one
+     step's launches, time and peak memory, one fp32 step kernels on vs off
+     at the train cells' gates;
+ 13. remat policies: train cell b under remat with policies None, "dots" and
+     "dots_no_batch", the fp32 gradients of each against None's (within
+     1e-5 max|g| + 1e-9), each policy's bf16 step timed with its launches
+     (the kernels run in the forward and again in the recompute).  The JSON
+     line adds `ablation_launches` (a forward of each variant),
+     `classification_launches` (the CLI run) and `remat_step_launches`.
   On the card the Restorer runs every served request on a CUDA graph, so
   the serve phases count the launches of the traced forwards (each graph's
   warm-up forwards and capture); its replays launch without counting.
@@ -416,6 +436,16 @@ class Phase:
 
 
 TRAIN_WARMUP, TRAIN_RUNS = 3, 10     # train-step timing: warm-up, timed steps
+# the trainer CLI of the train and classification phases: the SR recipe
+# (experiment=sr/grl_p256's own defaults select grl_tiny after the CLI's
+# model=grl/grl_small, as grlir composes; GRL-S's width and tail are set
+# explicitly), bs8, bf16, the v3 kernels under grad
+TRAIN_CLI_ARGS = ["experiment=sr/grl_p256", "model=grl/grl_small", "model.name=grl_small",
+                  "model.embed_dim=128", "model.upsampler=pixelshuffle", "batch_size=8",
+                  "dtype=bfloat16", "model.use_pallas_attention=v3",
+                  "trainer.val_check_interval=3", "trainer.log_every_n_steps=1",
+                  "data_module.train.dataset=div2k", "data_module.val.dataset=set5",
+                  "num_workers=4"]
 TRAIN_GT_HW, TRAIN_IMAGES = 320, 16  # the trainer's synthetic data root
 
 
@@ -625,15 +655,7 @@ def train_phase(dev, smi, counts, routes):
     try:
         val_png = write_train_root(os.environ["GRLIR_DATA_ROOT"])
         out = os.path.join(tmp.name, "out")
-        # experiment=sr/grl_p256's own defaults select grl_tiny after the
-        # CLI's model=grl/grl_small (grlir composes so); GRL-S's width and
-        # tail are set explicitly
-        args = ["experiment=sr/grl_p256", "model=grl/grl_small", "model.name=grl_small",
-                "model.embed_dim=128", "model.upsampler=pixelshuffle", "batch_size=8",
-                "dtype=bfloat16", "model.use_pallas_attention=v3",
-                "trainer.val_check_interval=3", "trainer.log_every_n_steps=1",
-                "data_module.train.dataset=div2k", "data_module.val.dataset=set5",
-                f"io.base_output_path={out}", "tag=chip_train", "num_workers=4"]
+        args = TRAIN_CLI_ARGS + [f"io.base_output_path={out}", "tag=chip_train"]
         ckpt_mod.CheckpointManager.restore = spy
         ba.reset_launches()
         t0 = time.perf_counter()
@@ -2085,6 +2107,37 @@ def main() -> int:
                                     rnd6(1, ns, heads, n2, 64, std=0.25), ls,
                                     16 * torch.sigmoid(rnd6(heads, n1, n2)), dense_mask(bs, bsa)),
                         rnd6(1, ns, heads, n1, 64)))
+        # the legacy route of the ablation branches: B6 on qkv
+        # projected beforehand (GRL-S's separable-conv qkv at 256^2, the
+        # window half's channels, rolled and partitioned channel-major), and
+        # B7a at GRL-S 256^2's stripes (8x64 and 64x8: 512 tokens, 32
+        # anchors), shifted, on the d-major views the model passes
+        from grlir_torch.models.blocks import QKVProjection
+        from grlir_torch.ops.layout import window_partition_cm
+
+        sep = QKVProjection(s_cfg.embed_dim, proj_type="separable_conv").to(dev)
+        with torch.no_grad():
+            q_sep = sep(rnd(1, *hw, s_cfg.embed_dim), torch.float32)[..., :3 * heads * d]
+            q_sep = window_partition_cm(torch.roll(q_sep, (-4, -4), dims=(1, 2)), (8, 8))
+        del sep
+        cases_f.append(("fused_window_attention_qkv",
+                        "GRL-S 256^2 separable-conv qkv projected, windows (8, 8) shift 4",
+                        window_qkv_case(ls, bias_w, bands_w), q_sep))
+        for key in ("sh", "sv"):
+            bs, bsa = geom[f"bands_{key}"], geom[f"bands_{key}_a"]
+            (ns, n1), n2 = bs.shape, bsa.shape[1]
+
+            def dmaj(n_, std=1.0):
+                return rnd(1, ns, heads, d, n_, std=std).transpose(-1, -2)
+
+            a_t, x1_t = dmaj(n2), dmaj(n2, 0.25)
+            q_t, k_t, v_t = dmaj(n1), dmaj(n1), dmaj(n1, 0.25)
+            b1, b2 = 16 * torch.sigmoid(rnd(heads, n2, n1)), 16 * torch.sigmoid(rnd(heads, n1, n2))
+            lab = f"GRL-S 256^2 legacy stripes {key} shifted (N1 {n1}, N2 {n2}, d-major)"
+            cases_f.append(("fused_cosine_attention", f"{lab} a2w",
+                            cosine_case(k_t, v_t, ls, b1, dense_mask(bsa, bs)), a_t))
+            cases_f.append(("fused_cosine_attention", f"{lab} w2a",
+                            cosine_case(a_t, x1_t, ls, b2, dense_mask(bs, bsa)), q_t))
         # B5: GRL-base at its eval geometry, 256^2 (3 heads of d = 30)
         ls3 = torch.tensor([math.log(10.0), 5.0, 3.0], device=dev).reshape(3, 1, 1)
         gb = geometry_tensors(sr_cfg.geometry_config, (BASE_HW, BASE_HW), dev)
@@ -2392,7 +2445,10 @@ def main() -> int:
                 "GRL-S stripe (8, 64) shift (4, 32) w2a", "GRL-S 128^2 stripes sh shifted w2a"}
         also = {"GRL-S stripe (8, 64) shift (4, 32) a2w", "GRL-S 128^2 stripes sh shifted a2w",
                 "GRL-base window (32, 32) shift 16", "GRL-base stripe (64, 64) shifted a2w",
-                "GRL-base stripe (64, 64) shifted w2a"}
+                "GRL-base stripe (64, 64) shifted w2a",
+                "GRL-S 256^2 separable-conv qkv projected, windows (8, 8) shift 4",
+                "GRL-S 256^2 legacy stripes sh shifted (N1 512, N2 32, d-major) a2w",
+                "GRL-S 256^2 legacy stripes sh shifted (N1 512, N2 32, d-major) w2a"}
         for kname, label, case, xc in cases_f:
             if label in keep | also:
                 time_case(kname, label, case, xc, 5, 2, timing if label in keep else {})
@@ -2560,6 +2616,17 @@ def main() -> int:
     with Phase("parallel"):
         par = parallel_phase(dev, smi)
 
+    # 11.-13. the rest of GRL's model surface: the ablation
+    # switches, classification training, the remat policies
+    from grlir_torch import ablation_cells as ac
+
+    with Phase("ablation"):
+        ablation = ac.ablation_phase(dev, smi, check)
+    with Phase("classification"):
+        cls_cli = ac.classification_phase(dev, smi, check, write_train_root, TRAIN_CLI_ARGS)
+    with Phase("remat"):
+        remat = ac.remat_phase(dev, smi, check)
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": served[k], "train_launches": train_cli.get(k, 0),
@@ -2568,6 +2635,9 @@ def main() -> int:
          "train_step_launches": {c: n.get(k, 0) for c, n in train_step.items()},
          "gan_launches": gan_cli.get(k, 0),
          "gan_step_launches": {p: n.get(k, 0) for p, n in gan_step.items()},
+         "ablation_launches": {v: n.get(k, 0) for v, n in ablation.items()},
+         "classification_launches": cls_cli.get(k, 0),
+         "remat_step_launches": {p: n.get(k, 0) for p, n in remat.items()},
          "max_abs_err": max_err[k],
          **timing[k]}
         for k in REPLACES]}))

@@ -75,6 +75,7 @@ def make_train_step(
     loss_cfg: Mapping[str, float],
     preprocess: Optional[Callable] = None,
     classification: bool = False,
+    one_hot_label: bool = True,
 ):
     """Build step(state, batch) -> metrics.
 
@@ -82,12 +83,20 @@ def make_train_step(
     state in place and returns {"loss", "loss_<name>"} as detached 0-d
     tensors: reading them (float()) waits for the device, so the caller
     reads them only on the steps it logs.
+
+    classification: the model's head gives 256 class logits a channel; the
+    pixel losses apply to the expected image under their softmax and
+    cross_entropy to the distribution, against the target's one-hot class
+    or, one_hot_label False, its smoothed distribution
+    (`losses.classification.build_classification_loss`).
     """
     if classification:
-        raise NotImplementedError(
-            "classification training (per-pixel class losses) is not ported "
-            "yet (ROADMAP A10)")
-    losses = build_loss(loss_cfg)
+        from grlir_torch.losses.classification import build_classification_loss
+
+        cls_loss = build_classification_loss(loss_cfg, LOSS_FNS,
+                                             one_hot_label=one_hot_label)
+    else:
+        losses = build_loss(loss_cfg)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
         if preprocess is not None:
@@ -97,7 +106,10 @@ def make_train_step(
         model = state.model
         model.train()
         pred = model(lq, drop_masks=drop_masks(model, lq.shape[0], state.generator, lq.device))
-        total, parts = weighted_loss(losses, pred, gt)
+        if classification:
+            total, parts = cls_loss(pred, gt)
+        else:
+            total, parts = weighted_loss(losses, pred, gt)
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         metrics = {"loss": total.detach(),

@@ -116,9 +116,10 @@ def load_lpips_params(path: str) -> Dict:
     return out
 
 
-def load_lpips_model(path: str, device="cpu") -> LPIPSVgg:
-    """An LPIPSVgg in eval mode on `device` with the weights of an npz file
-    of save_lpips_params."""
+def load_lpips_model(path: str, device="cuda") -> LPIPSVgg:
+    """An LPIPSVgg in eval mode on `device` (the card unless the caller
+    asks for the CPU) with the weights of an npz file of
+    save_lpips_params."""
     from grlir_torch.utils.convert import jax_variables_to_state_dict
 
     model = LPIPSVgg()
@@ -127,9 +128,10 @@ def load_lpips_model(path: str, device="cpu") -> LPIPSVgg:
     return model.eval().to(device)
 
 
-def lpips_metric_fn(device="cpu") -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
-    """(B,H,W,3) x2 -> (B,) LPIPS with the weights of $GRLIR_LPIPS_NPZ;
-    raises when the variable names no file."""
+def lpips_metric_fn(device="cuda") -> Callable[[np.ndarray, np.ndarray], np.ndarray]:
+    """(B,H,W,3) x2 -> (B,) LPIPS with the weights of $GRLIR_LPIPS_NPZ, on
+    `device` (the card unless the caller asks for the CPU); raises when the
+    variable names no file."""
     path = os.path.expanduser(os.environ.get("GRLIR_LPIPS_NPZ", ""))
     if not path or not os.path.exists(path):
         raise RuntimeError(

@@ -1,5 +1,5 @@
 """GRL building blocks as torch modules on NHWC tensors (counterparts of the
-main-path classes of `grlir.models.blocks`).
+classes of `grlir.models.blocks`, the ablation branches included).
 
 Parameter names follow the reference's state_dict, so that
 `grlir_torch.utils.convert.flax_path_to_torch_key` maps every JAX parameter
@@ -53,10 +53,12 @@ def linear(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 
 def conv_nhwc(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """SAME conv of an NHWC tensor in dtype dt (the conv reads and writes
-    channels-last memory, so the permutes are free)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), layer.weight.to(dt),
-                 layer.bias.to(dt), padding=layer.padding)
+    """The conv of an NHWC tensor in dtype dt, with the layer's stride,
+    padding and groups (the conv reads and writes channels-last memory, so
+    the permutes are free)."""
+    b = None if layer.bias is None else layer.bias.to(dt)
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), layer.weight.to(dt), b,
+                 stride=layer.stride, padding=layer.padding, groups=layer.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -127,7 +129,8 @@ def _l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12):
 
 
 def cosine_attention(q, k, v, transform: AffineTransform, table, index, mask,
-                     fused: bool = False, kernels: bool = True) -> torch.Tensor:
+                     fused: bool = False, kernels: bool = True,
+                     euclidean: bool = False) -> torch.Tensor:
     """Cosine attention of grlir's `cosine_attention` in its d-major layout:
     q (B, nW, h, d, N1); k, v (B, nW, h, d, N2); mask (nW, N1, N2) additive
     or None.  Returns (B, nW, h, d, N1).
@@ -138,14 +141,19 @@ def cosine_attention(q, k, v, transform: AffineTransform, table, index, mask,
     mask in the logits' type, an fp32 softmax rounded back, the product
     with v in the compute type.  fused=True runs the B7 kernels through
     `fused_cosine_attention_auto` on token-major views (use_pallas=True,
-    :370-378)."""
-    if fused:
+    :370-378).  euclidean=True takes the logits as the Euclidean distances
+    ||q_n - k_m|| of the raw q and k (grlir's euclidean_dist, :379-392);
+    it never reaches a kernel, whatever `fused` says, as in grlir."""
+    if fused and not euclidean:
         y = fused_cosine_attention_auto(
             q.transpose(-1, -2), k.transpose(-1, -2), v.transpose(-1, -2),
             transform.logit_scale, transform.bias(table, index), mask, kernels)
         return y.transpose(-1, -2)
-    attn = torch.einsum("...dn,...dm->...nm", _l2_normalize(q, -2),
-                        _l2_normalize(k, -2))
+    if euclidean:
+        attn = torch.linalg.vector_norm(q[..., :, None] - k[..., None, :], dim=-3)
+    else:
+        attn = torch.einsum("...dn,...dm->...nm", _l2_normalize(q, -2),
+                            _l2_normalize(k, -2))
     scale = torch.exp(torch.clamp(transform.logit_scale, max=math.log(100.0)))
     attn = attn * scale.to(attn.dtype)
     attn = attn + transform.bias(table, index, attn.dtype)
@@ -165,14 +173,19 @@ def _qkv_cm(xw, wqkv, bqkv, dt: torch.dtype) -> torch.Tensor:
     return out
 
 
-def _qkv_cm_heads(xw, wqkv, bqkv, dt: torch.dtype, heads: int):
-    """The projection split into q, k, v of (B, nW, heads, d, N) each (the
-    "fused" form of grlir/models/blocks.py:883-898)."""
-    qkv = _qkv_cm(xw, wqkv, bqkv, dt)
+def _split_qkv_cm(qkv: torch.Tensor, heads: int):
+    """(B, nW, 3C, N) channel-major qkv -> q, k, v of (B, nW, heads, d, N)
+    each, channels in [3, heads, d] order."""
     B, nW, C3, N = qkv.shape
     C = C3 // 3
     return tuple(qkv[:, :, i * C:(i + 1) * C].reshape(B, nW, heads, C // heads, N)
                  for i in range(3))
+
+
+def _qkv_cm_heads(xw, wqkv, bqkv, dt: torch.dtype, heads: int):
+    """The projection split into q, k, v of (B, nW, heads, d, N) each (the
+    "fused" form of grlir/models/blocks.py:883-898)."""
+    return _split_qkv_cm(_qkv_cm(xw, wqkv, bqkv, dt), heads)
 
 
 class WindowAttention(nn.Module):
@@ -180,15 +193,18 @@ class WindowAttention(nn.Module):
     the block-half kernels where a TPU route takes the geometry and the
     plain path where none does (grlir/models/blocks.py:557-562); "fused"
     runs B6, or B5 above _FLASH_MIN_TOKENS tokens; "plain" runs
-    cosine_attention."""
+    cosine_attention.  `forward` takes the block input and this half's
+    slice of the qkv weights; `forward_projected` takes qkv projected
+    beforehand (grlir's legacy route, :484-522)."""
 
     def __init__(self, window: int, heads: int, shift: bool, mode: str = "v3",
-                 device=None):
+                 euclidean: bool = False, device=None):
         super().__init__()
         self.window = (window, window)
         self.heads = heads
         self.shift = window // 2 if shift else 0
         self.mode = mode
+        self.euclidean = euclidean
         self.attn_transform = AffineTransform(heads, device=device)
 
     def forward(self, x, wqkv, bqkv, tim, dt, kernels: bool):
@@ -225,29 +241,125 @@ class WindowAttention(nn.Module):
                               (H, W))
         return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
 
+    def forward_projected(self, qkv, tim, dt, kernels: bool):
+        """qkv: (B, H, W, 3Cw) projected beforehand.  mode "fused" runs B6
+        on the channel-major windows of qkv, whatever their token count (the
+        legacy route has no flash branch); any other mode, and the
+        Euclidean logits, the plain cosine_attention."""
+        t = self.attn_transform
+        _, H, W, _ = qkv.shape
+        h, shift = self.heads, self.shift
+        table, index = tim["table_w"], tim["index_w"]
+        bands = tim["bands_w"] if shift else None
+        if shift:
+            qkv = torch.roll(qkv, (-shift, -shift), dims=(1, 2))
+        qw = window_partition_cm(qkv, self.window)            # (B, nW, 3Cw, N)
+        if self.mode == "fused" and not self.euclidean:
+            y = fused_window_attention_qkv(qw, t.logit_scale, t.bias(table, index),
+                                           h, bands, kernels)
+        else:
+            q, k, v = _split_qkv_cm(qw, h)
+            mask = _inflate_mask(bands, bands, dt) if shift else None
+            y = cosine_attention(q, k, v, t, table, index, mask,
+                                 euclidean=self.euclidean)
+        B, nW, _, N = qw.shape
+        y = window_reverse_cm(y.reshape(B, nW, -1, N), self.window, (H, W))
+        return torch.roll(y, (shift, shift), dims=(1, 2)) if shift else y
+
+
+class SeparableConv(nn.Sequential):
+    """Depthwise k x k conv (stride s, a group a channel), GELU when act,
+    then a 1x1 pointwise conv (keys 0 and 2; grlir/models/blocks.py:803-823)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 bias: bool = True, act: bool = True, device=None):
+        super().__init__(
+            nn.Conv2d(cin, cin, kernel, stride, padding=kernel // 2, groups=cin,
+                      bias=bias, device=device),
+            nn.GELU() if act else nn.Identity(),
+            nn.Conv2d(cin, cout, 1, bias=bias, device=device))
+        self.act = act
+
+    def forward(self, x, dt):
+        y = conv_nhwc(self[0], x, dt)
+        return conv_nhwc(self[2], gelu(y) if self.act else y, dt)
+
+
+class PatchMerging(nn.Module):
+    """2 x 2 space-to-depth, then a linear reduction without bias (key
+    reduction; grlir/models/blocks.py:920-933)."""
+
+    def __init__(self, dim: int, out_dim: int, device=None):
+        super().__init__()
+        self.reduction = nn.Linear(4 * dim, out_dim, bias=False, device=device)
+
+    def forward(self, x, dt):
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                       x[:, 1::2, 1::2]], dim=-1)
+        return linear(self.reduction, x, dt)
+
 
 class AnchorLinear(nn.Module):
-    """df x df average pool then a linear reduction to dim/2 (key reduction)."""
+    """df x df average (or max) pool then a linear reduction to dim/2 (key
+    reduction)."""
 
-    def __init__(self, dim: int, df: int, device=None):
+    def __init__(self, dim: int, df: int, pool: str = "avgpool", device=None):
         super().__init__()
         self.df = df
+        self.pool = F.avg_pool2d if pool == "avgpool" else F.max_pool2d
         self.reduction = nn.Linear(dim, dim // 2, device=device)
 
     def forward(self, x, dt):
-        p = F.avg_pool2d(x.permute(0, 3, 1, 2), self.df, self.df)
+        p = self.pool(x.permute(0, 3, 1, 2), self.df, self.df)
         return linear(self.reduction, p.permute(0, 2, 3, 1), dt)
 
 
 class AnchorProjection(nn.Module):
-    """One-stage avgpool anchor projection (keys anchor.body.0.reduction)."""
+    """The block input down-sampled df x to the anchor map at dim/2
+    channels (grlir/models/blocks.py:935-977; keys anchor.body.<i>).  One
+    stage: avgpool or maxpool + linear, a (df+1)^2 conv of stride df, its
+    separable form, or one patch merging; two stages (one_stage False):
+    log2(df) steps of a 3x3 conv of stride 2, its separable form, or patch
+    merging.  Where grlir gives a layer no compute type (patch merging, the
+    two-stage steps) it runs in fp32, and the anchor is rounded to dt."""
 
-    def __init__(self, dim: int, df: int, device=None):
+    def __init__(self, dim: int, df: int, proj_type: str = "avgpool",
+                 one_stage: bool = True, act: bool = True, device=None):
         super().__init__()
-        self.body = nn.ModuleList([AnchorLinear(dim, df, device=device)])
+        out = dim // 2
+        self.fp32 = proj_type == "patchmerging" or not one_stage
+        if one_stage:
+            if proj_type in ("avgpool", "maxpool"):
+                body = AnchorLinear(dim, df, proj_type, device=device)
+            elif proj_type == "conv2d":
+                body = nn.Conv2d(dim, out, df + 1, df, padding=(df + 1) // 2,
+                                 device=device)
+            elif proj_type == "separable_conv":
+                body = SeparableConv(dim, out, df + 1, df, True, act, device=device)
+            elif proj_type == "patchmerging":
+                body = PatchMerging(dim, out, device=device)
+            else:
+                raise ValueError(f"anchor_proj_type {proj_type!r}")
+            self.body = nn.ModuleList([body])
+            return
+        steps = []
+        for i in range(int(math.log2(df))):
+            cin = dim if i == 0 else out
+            if proj_type == "conv2d":
+                steps.append(nn.Conv2d(cin, out, 3, 2, padding=1, device=device))
+            elif proj_type == "separable_conv":
+                steps.append(SeparableConv(cin, out, 3, 2, True, act, device=device))
+            elif proj_type == "patchmerging":
+                steps.append(PatchMerging(cin, out, device=device))
+            else:
+                raise ValueError(f"two-stage anchor_proj_type {proj_type!r}")
+        self.body = nn.ModuleList(steps)
 
     def forward(self, x, dt):
-        return self.body[0](x, dt)
+        cdt = torch.float32 if self.fp32 else dt
+        for step in self.body:
+            x = conv_nhwc(step, x, cdt) if isinstance(step, nn.Conv2d) else step(x, cdt)
+        return x.to(dt)
 
 
 class AnchorStripeAttention(nn.Module):
@@ -255,10 +367,12 @@ class AnchorStripeAttention(nn.Module):
     down-sampled anchor (a2w, then w2a).  mode as in WindowAttention: "v3"
     the block-half kernels where a TPU route takes the geometry, else the
     plain path; "fused" B5 twice above _FLASH_MIN_TOKENS tokens, else B7
-    twice; "plain" cosine_attention twice."""
+    twice; "plain" cosine_attention twice.  `forward_projected` takes qkv
+    projected beforehand (grlir's legacy route, :646-672): "fused" runs B7
+    twice at any token count, every other mode the plain path."""
 
     def __init__(self, stripe_size, stripe_groups, shift: bool, heads: int,
-                 df: int, mode: str = "v3", device=None):
+                 df: int, mode: str = "v3", euclidean: bool = False, device=None):
         super().__init__()
         self.stripe_size = tuple(stripe_size)
         self.stripe_groups = tuple(stripe_groups)
@@ -266,23 +380,28 @@ class AnchorStripeAttention(nn.Module):
         self.heads = heads
         self.df = df
         self.mode = mode
+        self.euclidean = euclidean
         self.attn_transform1 = AffineTransform(heads, device=device)
         self.attn_transform2 = AffineTransform(heads, device=device)
+
+    def _geometry(self, x_size, anchor, tim):
+        """(stripe, shift, anchor rolled by the anchor's shift, bands,
+        anchor bands); the shift and bands are zero and None unshifted."""
+        df = self.df
+        stripe, shift = get_stripe_info(self.stripe_size, self.stripe_groups,
+                                        self.shift, x_size)
+        if not self.shift:
+            return stripe, (0, 0), anchor, None, None
+        anchor = torch.roll(anchor, (-(shift[0] // df), -(shift[1] // df)),
+                            dims=(1, 2))
+        return stripe, shift, anchor, tim["bands_s"], tim["bands_s_a"]
 
     def forward(self, x, anchor, wqkv, bqkv, tim, dt, kernels: bool):
         _, H, W, _ = x.shape
         df, h = self.df, self.heads
-        stripe, shift = get_stripe_info(self.stripe_size, self.stripe_groups,
-                                        self.shift, (H, W))
-        bands = bands_a = None
-        if self.shift:
-            # the anchor is rolled here; x's roll happens inside stripe_half
-            # or below
-            anchor = torch.roll(anchor, (-(shift[0] // df), -(shift[1] // df)),
-                                dims=(1, 2))
-            bands, bands_a = tim["bands_s"], tim["bands_s_a"]
-        else:
-            shift = (0, 0)
+        # the anchor is rolled here; x's roll happens inside stripe_half or
+        # below
+        stripe, shift, anchor, bands, bands_a = self._geometry((H, W), anchor, tim)
         t1, t2 = self.attn_transform1, self.attn_transform2
         table, i1, i2 = tim["table_s"], tim["index_a2w"], tim["index_w2a"]
         if self.mode == "v3":
@@ -307,14 +426,71 @@ class AnchorStripeAttention(nn.Module):
                                      t2.bias(table, i2, q.dtype), bands, bands_a,
                                      kernels)
         else:
-            fused = self.mode == "fused"
-            m1 = m2 = None
-            if self.shift:
-                m1 = _inflate_mask(bands_a, bands, dt)
-                m2 = _inflate_mask(bands, bands_a, dt)
-            y = cosine_attention(a, k, v, t1, table, i1, m1, fused, kernels)
-            y = cosine_attention(q, a, y, t2, table, i2, m2, fused, kernels)
+            y = self._attend(q, k, v, a, tim, dt, bands, bands_a, kernels)
         y = window_reverse_cm(y.reshape(B, nW, -1, N1), stripe, (H, W))
+        return torch.roll(y, shift, dims=(1, 2)) if self.shift else y
+
+    def _attend(self, q, k, v, a, tim, dt, bands, bands_a, kernels: bool):
+        """The two cosine attentions, a2w then w2a: B7 in mode "fused", the
+        plain path otherwise and for the Euclidean logits."""
+        fused = self.mode == "fused"
+        m1 = m2 = None
+        if self.shift:
+            m1 = _inflate_mask(bands_a, bands, dt)
+            m2 = _inflate_mask(bands, bands_a, dt)
+        table = tim["table_s"]
+        y = cosine_attention(a, k, v, self.attn_transform1, table, tim["index_a2w"],
+                             m1, fused, kernels, self.euclidean)
+        return cosine_attention(q, a, y, self.attn_transform2, table,
+                                tim["index_w2a"], m2, fused, kernels, self.euclidean)
+
+    def forward_projected(self, qkv, anchor, tim, dt, kernels: bool):
+        """qkv: (B, H, W, 3Cs) projected beforehand; anchor (B, H/df, W/df,
+        Cs)."""
+        _, H, W, _ = qkv.shape
+        df, h = self.df, self.heads
+        stripe, shift, anchor, bands, bands_a = self._geometry((H, W), anchor, tim)
+        if self.shift:
+            qkv = torch.roll(qkv, (-shift[0], -shift[1]), dims=(1, 2))
+        q, k, v = _split_qkv_cm(window_partition_cm(qkv, stripe), h)
+        B, nW, _, d, N1 = q.shape
+        a = window_partition_cm(anchor, (stripe[0] // df, stripe[1] // df))
+        y = self._attend(q, k, v, a.reshape(B, nW, h, d, -1), tim, dt, bands,
+                         bands_a, kernels)
+        y = window_reverse_cm(y.reshape(B, nW, -1, N1), stripe, (H, W))
+        return torch.roll(y, shift, dims=(1, 2)) if self.shift else y
+
+
+class StripeAttention(nn.Module):
+    """Anchor-free stripe attention, the stripe half at df 1: plain cosine
+    attention within each stripe on qkv projected beforehand, with the df 1
+    geometry's w2a table, index and mask (grlir/models/blocks.py:770-800;
+    grlir sends it to no kernel)."""
+
+    def __init__(self, stripe_size, stripe_groups, shift: bool, heads: int,
+                 euclidean: bool = False, device=None):
+        super().__init__()
+        self.stripe_size = tuple(stripe_size)
+        self.stripe_groups = tuple(stripe_groups)
+        self.shift = shift
+        self.heads = heads
+        self.euclidean = euclidean
+        self.attn_transform = AffineTransform(heads, device=device)
+
+    def forward(self, qkv, tim, dt):
+        _, H, W, _ = qkv.shape
+        stripe, shift = get_stripe_info(self.stripe_size, self.stripe_groups,
+                                        self.shift, (H, W))
+        if self.shift:
+            qkv = torch.roll(qkv, (-shift[0], -shift[1]), dims=(1, 2))
+        qw = window_partition_cm(qkv, stripe)
+        q, k, v = _split_qkv_cm(qw, self.heads)
+        mask = (_inflate_mask(tim["bands_s"], tim["bands_s_a"], dt)
+                if self.shift else None)
+        y = cosine_attention(q, k, v, self.attn_transform, tim["table_s"],
+                             tim["index_w2a"], mask, euclidean=self.euclidean)
+        B, nW, _, N = qw.shape
+        y = window_reverse_cm(y.reshape(B, nW, -1, N), stripe, (H, W))
         return torch.roll(y, shift, dims=(1, 2)) if self.shift else y
 
 
@@ -362,44 +538,118 @@ class CAB(nn.Module):
 
 
 class QKVProjection(nn.Module):
-    """Shared qkv projection (key qkv.body); its weight is split per half."""
+    """Shared qkv projection (key qkv.body): a Linear, or for any other
+    proj_type a 3x3 separable conv (grlir/models/blocks.py:901-918).  The
+    fused route reads the Linear's weight, split per half, instead of
+    calling it."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, bias: bool = True, proj_type: str = "linear",
+                 act: bool = True, device=None):
         super().__init__()
-        self.body = nn.Linear(dim, 3 * dim, device=device)
+        self.linear = proj_type == "linear"
+        self.body = (nn.Linear(dim, 3 * dim, bias=bias, device=device) if self.linear
+                     else SeparableConv(dim, 3 * dim, 3, 1, bias, act, device=device))
+
+    def forward(self, x, dt):
+        return linear(self.body, x, dt) if self.linear else self.body(x, dt)
+
+
+# grlir's ablation fields of MixedAttention, with the recipes' values
+ATTENTION_OPTIONS = {
+    "qkv_bias": True, "qkv_proj_type": "linear", "anchor_proj_type": "avgpool",
+    "anchor_one_stage": True, "separable_conv_act": True,
+    "euclidean_dist": False, "double_window": False, "stripe_square": False,
+    "out_proj_type": "linear",
+}
 
 
 class MixedAttention(nn.Module):
-    """Shared-qkv window + anchored-stripe attention: the first half of the
-    qkv channels feeds the window half, the second the stripe half; the
-    outputs concatenate before the output projection.  engine: a key of
-    ENGINE_HALVES, the attention each half runs."""
+    """Shared-qkv window + stripe attention: the first half of the qkv
+    channels feeds the window half, the second the stripe half; the outputs
+    concatenate before the output projection (a Linear, or a 3x3 conv with
+    out_proj_type "conv2d").  engine: a key of ENGINE_HALVES, the attention
+    each half runs.
+
+    grlir's routing (grlir/models/blocks.py:1040-1138): with a linear qkv,
+    an anchor (df > 1), one window half and cosine logits the halves take
+    the block input and the raw qkv weights (`fused_io`); every other
+    combination projects qkv first and takes the legacy route, where the
+    v3 engine runs the plain path, the fused engines B6 on the window half
+    and B7 twice on the anchored stripe half.  The stripe half is then the
+    anchored one, a second (always plain) window attention with
+    double_window, or at df 1 the anchor-free StripeAttention, on
+    window-sized squares with stripe_square."""
 
     def __init__(self, dim: int, heads_w: int, heads_s: int, window: int,
                  window_shift: bool, stripe_size, stripe_groups,
-                 stripe_shift: bool, df: int, engine: str = "v3", device=None):
+                 stripe_shift: bool, df: int, engine: str = "v3", device=None,
+                 **options):
         super().__init__()
+        unknown = set(options) - set(ATTENTION_OPTIONS)
+        if unknown:
+            raise TypeError(f"unknown attention options {sorted(unknown)}")
+        o = {**ATTENTION_OPTIONS, **options}
         mode_w, mode_s = ENGINE_HALVES[engine]
+        euclid = o["euclidean_dist"]
         self.dim = dim
-        self.qkv = QKVProjection(dim, device=device)
+        self.fused_io = (o["qkv_proj_type"] == "linear" and not o["double_window"]
+                         and df > 1 and not euclid)
+        self.qkv = QKVProjection(dim, o["qkv_bias"], o["qkv_proj_type"],
+                                 o["separable_conv_act"], device=device)
         self.window_attn = WindowAttention(window, heads_w, window_shift,
-                                           mode_w, device=device)
-        self.anchor = AnchorProjection(dim, df, device=device)
-        self.stripe_attn = AnchorStripeAttention(
-            stripe_size, stripe_groups, stripe_shift, heads_s, df, mode_s,
-            device=device)
-        self.proj = nn.Linear(dim, dim, device=device)
+                                           mode_w, euclid, device=device)
+        self.anchor = None
+        if o["double_window"]:
+            self.stripe_attn = WindowAttention(window, heads_w, window_shift,
+                                               "plain", euclid, device=device)
+        elif df > 1:
+            self.anchor = AnchorProjection(dim, df, o["anchor_proj_type"],
+                                           o["anchor_one_stage"],
+                                           o["separable_conv_act"], device=device)
+            self.stripe_attn = AnchorStripeAttention(
+                stripe_size, stripe_groups, stripe_shift, heads_s, df, mode_s,
+                euclid, device=device)
+        elif o["stripe_square"]:
+            self.stripe_attn = StripeAttention((window, window), (None, None),
+                                               stripe_shift, heads_s, euclid,
+                                               device=device)
+        else:
+            self.stripe_attn = StripeAttention(stripe_size, stripe_groups,
+                                               stripe_shift, heads_s, euclid,
+                                               device=device)
+        if o["out_proj_type"] == "conv2d":
+            self.proj = nn.Conv2d(dim, dim, 3, padding=1, device=device)
+        elif o["out_proj_type"] == "linear":
+            self.proj = nn.Linear(dim, dim, device=device)
+        else:
+            raise ValueError(f"out_proj_type {o['out_proj_type']!r}")
 
     def forward(self, x, tim, dt, kernels: bool):
-        wqkv = self.qkv.body.weight.t()               # (C, 3C), JAX layout
-        bqkv = self.qkv.body.bias
-        half = 3 * self.dim // 2
-        x_win = self.window_attn(x, wqkv[:, :half], bqkv[:half], tim, dt,
-                                 kernels)
-        anchor = self.anchor(x, dt)
-        x_str = self.stripe_attn(x, anchor, wqkv[:, half:], bqkv[half:], tim,
-                                 dt, kernels)
-        return linear(self.proj, torch.cat([x_win, x_str], dim=-1), dt)
+        if self.fused_io:
+            wqkv = self.qkv.body.weight.t()           # (C, 3C), JAX layout
+            b = self.qkv.body.bias
+            half = 3 * self.dim // 2
+            x_win = self.window_attn(x, wqkv[:, :half],
+                                     None if b is None else b[:half], tim, dt,
+                                     kernels)
+            x_str = self.stripe_attn(x, self.anchor(x, dt), wqkv[:, half:],
+                                     None if b is None else b[half:], tim, dt,
+                                     kernels)
+        else:
+            qkv = self.qkv(x, dt)
+            q_win, q_str = qkv.chunk(2, dim=-1)
+            x_win = self.window_attn.forward_projected(q_win, tim, dt, kernels)
+            if isinstance(self.stripe_attn, StripeAttention):
+                x_str = self.stripe_attn(q_str, tim, dt)
+            elif self.anchor is None:
+                x_str = self.stripe_attn.forward_projected(q_str, tim, dt, kernels)
+            else:
+                x_str = self.stripe_attn.forward_projected(
+                    q_str, self.anchor(x, dt), tim, dt, kernels)
+        y = torch.cat([x_win, x_str], dim=-1)
+        if isinstance(self.proj, nn.Conv2d):
+            return conv_nhwc(self.proj, y, dt)
+        return linear(self.proj, y, dt)
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
@@ -416,7 +666,8 @@ class EfficientMixAttnTransformerBlock(nn.Module):
     """GRL block: mixed attention and MLP with post-norm residuals, plus the
     CAB local branch beside the attention when local_connection is set
     (key conv).  stripe_type "W" (vertical stripes) reverses the stripe size
-    and groups and reads the `sv` geometry.  In training both residual
+    and groups and reads the `sv` geometry.  options: ATTENTION_OPTIONS'
+    fields, handed to MixedAttention.  In training both residual
     branches take stochastic depth at drop_path_rate and are scaled by
     res_scale (grlir/models/blocks.py:1222-1233)."""
 
@@ -425,7 +676,7 @@ class EfficientMixAttnTransformerBlock(nn.Module):
                  stripe_type: str, stripe_shift: bool, mlp_ratio: float,
                  df: int, local_connection: bool = False, engine: str = "v3",
                  drop_path_rate: float = 0.0, res_scale: float = 1.0,
-                 device=None):
+                 device=None, **options):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.res_scale = res_scale
@@ -434,7 +685,7 @@ class EfficientMixAttnTransformerBlock(nn.Module):
             stripe_size, stripe_groups = stripe_size[::-1], stripe_groups[::-1]
         self.attn = MixedAttention(dim, heads_w, heads_s, window, window_shift,
                                    stripe_size, stripe_groups, stripe_shift,
-                                   df, engine, device=device)
+                                   df, engine, device=device, **options)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), device=device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)

@@ -18,13 +18,19 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from grlir_torch.models.blocks import (
+    ATTENTION_OPTIONS,
     ENGINE_HALVES,
     EfficientMixAttnTransformerBlock,
     conv_nhwc,
     layer_norm,
+    linear,
 )
 from grlir_torch.ops.geometry import GeometryConfig, build_geometry_compact
 from grlir_torch.ops.layout import nearest_upsample, pad_to_multiple
@@ -32,29 +38,35 @@ from grlir_torch.ops.layout import nearest_upsample, pad_to_multiple
 Size2 = Tuple[int, int]
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
-NUM_OUT_FEATS = 64  # channels of the upsampling tails
 
 
 @dataclass(frozen=True)
 class GRLConfig:
     """Static hyperparameters of a GRL network: the fields of
-    `grlir.models.grl.GRLConfig` that the zoo's recipes set, with their
-    defaults, and its training fields: img_range (the input scaled by it
-    after the mean is taken off, the output divided by it), drop_path_rate
-    (stochastic depth at np.linspace(0, rate, sum(depths)) over the blocks,
-    in training only), init_method ("r" scales both residual branches by
-    0.1) and remat (each transformer block under
-    torch.utils.checkpoint; remat_policy other than None raises).  The JAX
-    package's other fields are TPU layout knobs or ablations, fixed here at
-    the recipes' values (qkv bias, linear qkv, one-stage avgpool anchor,
-    1conv, 64 tail features).
+    `grlir.models.grl.GRLConfig` but its TPU layout knobs (attn_layout,
+    attn_io, tail_layout), with their defaults.  Training fields: img_range
+    (the input scaled by it after the mean is taken off, the output divided
+    by it), drop_path_rate (stochastic depth at np.linspace(0, rate,
+    sum(depths)) over the blocks, in training only), init_method ("r"
+    scales both residual branches by 0.1), remat (each transformer block
+    under torch.utils.checkpoint) and remat_policy (None recomputes the
+    whole block; "dots" keeps every matrix product's output, "dots_no_batch"
+    those without a batch dimension: `REMAT_SAVED`).  The ablation fields
+    (qkv_bias ... out_proj_type, as grlir names them) select MixedAttention's
+    branches (`blocks.ATTENTION_OPTIONS`), conv_type the conv after each
+    stage and the body ("1conv" 3x3, "1conv1x1", "linear", "3conv"), and
+    num_out_feats the width of the upsampling tails.
 
     engine: "v3" | "fused" | "window" | "stripe", the attention engine.
     "v3" runs the whole block-half kernels (B1-B4) where a TPU route takes
     the geometry and the plain cosine attention where none does; "fused"
     runs the kernels on q, k, v projected beforehand on both halves (B6 or
     B5 for windows, B7 or B5 for stripes); "window" and "stripe" run them
-    on that half only and the plain cosine attention on the other.
+    on that half only and the plain cosine attention on the other.  The
+    ablation branches that project qkv first (a separable-conv qkv,
+    double_window, df 1, euclidean_dist) take grlir's legacy route: the
+    plain path on "v3", B6 and B7 on the fused engines
+    (`blocks.MixedAttention`).
     kernels: "auto" | True | False.  "auto" runs the CUDA attention kernels
     for CUDA inputs at inference (grad mode off, or the module in eval mode)
     and the plain PyTorch versions otherwise; False runs the plain version
@@ -84,11 +96,24 @@ class GRLConfig:
     stripe_groups: Tuple[Optional[int], Optional[int]] = (None, None)
     stripe_shift: bool = False
     mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qkv_proj_type: str = "linear"
+    out_proj_type: str = "linear"
+    anchor_proj_type: str = "avgpool"
+    anchor_one_stage: bool = True
     anchor_window_down_factor: int = 1
     local_connection: bool = False
     img_range: float = 1.0
     drop_path_rate: float = 0.1
+    conv_type: str = "1conv"
     init_method: str = "n"
+    separable_conv_act: bool = True
+    euclidean_dist: bool = False
+    double_window: bool = False
+    stripe_square: bool = False
+    pretrained_window_size: Tuple[int, int] = (0, 0)
+    pretrained_stripe_size: Tuple[int, int] = (0, 0)
+    num_out_feats: int = 64
     remat: bool = False
     remat_policy: Optional[str] = None
     engine: str = "v3"
@@ -109,12 +134,19 @@ class GRLConfig:
         return self.out_channels or self.in_channels
 
     @property
+    def attention_options(self) -> Dict[str, object]:
+        """The ablation fields MixedAttention takes."""
+        return {k: getattr(self, k) for k in ATTENTION_OPTIONS}
+
+    @property
     def geometry_config(self) -> GeometryConfig:
         return GeometryConfig(
             window_size=(self.window_size, self.window_size),
             stripe_size=tuple(self.stripe_size),
             stripe_groups=tuple(self.stripe_groups),
             anchor_window_down_factor=self.anchor_window_down_factor,
+            pretrained_window_size=tuple(self.pretrained_window_size),
+            pretrained_stripe_size=tuple(self.pretrained_stripe_size),
         )
 
     @property
@@ -122,21 +154,43 @@ class GRLConfig:
         return self.geometry_config.pad_size
 
 
-def check_ported(cfg: GRLConfig) -> None:
-    """Raise for the variants this port does not carry yet."""
-    if cfg.anchor_window_down_factor < 2:
-        raise NotImplementedError(
-            "plain stripe attention (anchor_window_down_factor=1) is not "
-            "ported yet (ROADMAP A10)")
+# the matrix products each remat policy keeps for the backward (grlir's
+# jax.checkpoint_policies.dots_saveable and
+# dots_with_no_batch_dims_saveable); every other op is recomputed
+REMAT_SAVED = {
+    "dots": (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+             torch.ops.aten.baddbmm),
+    "dots_no_batch": (torch.ops.aten.mm, torch.ops.aten.addmm),
+}
+
+
+def check_config(cfg: GRLConfig) -> None:
+    """Raise for a config the model cannot build."""
     if cfg.kernels not in ("auto", True, False):
         raise ValueError(f"kernels must be 'auto', True or False: {cfg.kernels!r}")
-    if cfg.remat_policy is not None:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only full recompute "
-            "(remat_policy None) is ported (ROADMAP A10)")
+    if cfg.remat_policy is not None and cfg.remat_policy not in REMAT_SAVED:
+        raise ValueError(f"remat_policy must be None or one of "
+                         f"{sorted(REMAT_SAVED)}: {cfg.remat_policy!r}")
     if cfg.engine not in ENGINE_HALVES:
         raise ValueError(f"engine must be one of {sorted(ENGINE_HALVES)}: "
                          f"{cfg.engine!r}")
+
+
+def remat_kwargs(policy: Optional[str]) -> Dict[str, object]:
+    """torch.utils.checkpoint's keyword arguments for a remat policy: none
+    for full recompute, else a selective-checkpoint context_fn that saves
+    the outputs of REMAT_SAVED[policy]."""
+    if policy is None:
+        return {}
+    saved = REMAT_SAVED[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if op.overloadpacket in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                            policy_fn)}
 
 
 @functools.lru_cache(maxsize=64)
@@ -161,8 +215,38 @@ def _conv(cin: int, cout: int, device=None) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1, device=device)
 
 
+def make_last_conv(conv_type: str, dim: int, device=None) -> nn.Module:
+    """The conv block before a residual (grlir/models/grl.py:184-210):
+    "1conv" a 3x3 conv, "1conv1x1" a 1x1 conv, "linear" a Linear, "3conv"
+    3x3 to dim/4, LeakyReLU(0.2), 1x1, LeakyReLU(0.2), 3x3 back to dim
+    (keys .0, .2, .4)."""
+    if conv_type == "1conv":
+        return _conv(dim, dim, device=device)
+    if conv_type == "1conv1x1":
+        return nn.Conv2d(dim, dim, 1, device=device)
+    if conv_type == "linear":
+        return nn.Linear(dim, dim, device=device)
+    if conv_type == "3conv":
+        return nn.Sequential(
+            _conv(dim, dim // 4, device=device), nn.LeakyReLU(0.2),
+            nn.Conv2d(dim // 4, dim // 4, 1, device=device), nn.LeakyReLU(0.2),
+            _conv(dim // 4, dim, device=device))
+    raise ValueError(f"conv_type {conv_type!r}")
+
+
+def last_conv(layer: nn.Module, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Apply a `make_last_conv` block to NHWC x in dtype dt."""
+    if isinstance(layer, nn.Linear):
+        return linear(layer, x, dt)
+    if isinstance(layer, nn.Sequential):
+        x = F.leaky_relu(conv_nhwc(layer[0], x, dt), 0.2)
+        x = F.leaky_relu(conv_nhwc(layer[2], x, dt), 0.2)
+        return conv_nhwc(layer[4], x, dt)
+    return conv_nhwc(layer, x, dt)
+
+
 class TransformerStage(nn.Module):
-    """Blocks then a 3x3 conv, with an outer residual.  Block schedule:
+    """Blocks then the conv_type block, with an outer residual.  Block schedule:
     window shift on even blocks, H stripes on even and vertical (W) on odd
     blocks, stripe shift on blocks i % 4 in {2, 3} (grlir/models/grl.py:243-276)."""
 
@@ -170,6 +254,7 @@ class TransformerStage(nn.Module):
                  drop_path_rates: Tuple[float, ...], device=None):
         super().__init__()
         self.remat = cfg.remat
+        self.remat_kwargs = remat_kwargs(cfg.remat_policy)
         self.blocks = nn.ModuleList([
             EfficientMixAttnTransformerBlock(
                 cfg.embed_dim, heads_w, heads_s, cfg.window_size,
@@ -181,9 +266,9 @@ class TransformerStage(nn.Module):
                 mlp_ratio=cfg.mlp_ratio, df=cfg.anchor_window_down_factor,
                 local_connection=cfg.local_connection, engine=cfg.engine,
                 drop_path_rate=drop_path_rates[i], res_scale=cfg.res_scale,
-                device=device)
+                device=device, **cfg.attention_options)
             for i in range(depth)])
-        self.conv = _conv(cfg.embed_dim, cfg.embed_dim, device=device)
+        self.conv = make_last_conv(cfg.conv_type, cfg.embed_dim, device=device)
 
     def forward(self, x, geometry, dt, kernels: bool,
                 keep: Optional[torch.Tensor] = None):
@@ -193,10 +278,10 @@ class TransformerStage(nn.Module):
             k = None if keep is None else keep[i]
             if self.remat and torch.is_grad_enabled():
                 res = checkpoint(block, res, geometry, dt, kernels, k,
-                                 use_reentrant=False)
+                                 use_reentrant=False, **self.remat_kwargs)
             else:
                 res = block(res, geometry, dt, kernels, k)
-        return conv_nhwc(self.conv, res, dt) + x
+        return last_conv(self.conv, res, dt) + x
 
 
 class Upsample(nn.Module):
@@ -225,9 +310,9 @@ class GRL(nn.Module):
 
     def __init__(self, cfg: GRLConfig, device=None):
         super().__init__()
-        check_ported(cfg)
+        check_config(cfg)
         self.cfg = cfg
-        dim, nf = cfg.embed_dim, NUM_OUT_FEATS
+        dim, nf = cfg.embed_dim, cfg.num_out_feats
         out_ch = cfg.resolved_out_channels
         self.conv_first = _conv(cfg.in_channels, dim, device=device)
         self.norm_start = nn.LayerNorm(dim, eps=1e-5, device=device)
@@ -239,7 +324,7 @@ class GRL(nn.Module):
                              device=device)
             for i, depth in enumerate(cfg.depths)])
         self.norm_end = nn.LayerNorm(dim, eps=1e-5, device=device)
-        self.conv_after_body = _conv(dim, dim, device=device)
+        self.conv_after_body = make_last_conv(cfg.conv_type, dim, device=device)
         up = cfg.upscale
         if cfg.upsampler in ("pixelshuffle", "nearest+conv"):
             self.conv_before_upsample = nn.Sequential(
@@ -350,7 +435,7 @@ class GRL(nn.Module):
 
         def body(feat):
             y = self.forward_features(feat, geometry, dt, kernels, keep)
-            return conv_nhwc(self.conv_after_body, y, dt) + feat
+            return last_conv(self.conv_after_body, y, dt) + feat
 
         if cfg.upsampler == "pixelshuffle":
             x = body(conv_nhwc(self.conv_first, x, dt))

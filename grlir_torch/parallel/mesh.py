@@ -59,8 +59,9 @@ def make_mesh(n_devices: Optional[int] = None) -> Mesh:
     return Mesh(rank, size)
 
 
-def maybe_initialize_distributed(device="cpu") -> bool:
-    """Join the group the environment describes (`launch.init_distributed`);
+def maybe_initialize_distributed(device="cuda") -> bool:
+    """Join the group the environment describes (`launch.init_distributed`),
+    a process on `device` (the card unless the caller asks for the CPU);
     True when a process group is active."""
     from grlir_torch.parallel.launch import init_distributed
 

@@ -9,7 +9,9 @@ device, or a pretrained checkpoint through `serve.load_checkpoint`), the
 optimizer and LR schedule, resumes from the run's latest checkpoint, and
 runs the step loop with logging, periodic validation, best tracking and
 checkpoint saves, then prints the results table.  `training=false`
-validates once.
+validates once.  `classification: true` (loss=ce, l1_ce or l2_ce) trains a
+head of 256 class logits a channel and validates on the image formed from
+their softmax (`prob_to_image`: weighted_sum or argmax).
 
 `device=cuda|cpu` (default cuda) is read off the command line before the
 config is composed.  The run is on the card unless it asks for the CPU; a
@@ -54,30 +56,16 @@ PALLAS_MODES = {
     False: ("v3", False),
 }
 
-# grlir's ablation fields the port carries only at the recipes' values
-RECIPE_ONLY = {"anchor_proj_type": "avgpool", "anchor_one_stage": True,
-               "qkv_proj_type": "linear", "qkv_bias": True, "conv_type": "1conv",
-               "out_proj_type": "linear", "euclidean_dist": False,
-               "double_window": False, "stripe_square": False,
-               "num_out_feats": 64}
-
 
 def build_model_config(cfg: dict) -> GRLConfig:
-    """cfg['model'] (+ the global dtype and remat) -> GRLConfig."""
+    """cfg['model'] (+ the global dtype, remat and remat_policy) -> GRLConfig.
+    With `classification` the head has 256 classes a channel."""
     model = dict(cfg["model"])
-    for key, want in RECIPE_ONLY.items():
-        if key in model and model[key] != want:
-            raise NotImplementedError(
-                f"model.{key}={model[key]!r}: only {want!r} is ported "
-                "(ROADMAP A10)")
-    if cfg.get("classification", False):
-        raise NotImplementedError(
-            "classification training (per-pixel class head and losses) is not "
-            "ported yet (ROADMAP A10)")
     known = {f.name for f in dc_fields(GRLConfig)}
     m = {k: v for k, v in model.items() if k in known}
     for seq_key in ("depths", "num_heads_window", "num_heads_stripe",
-                    "stripe_size", "stripe_groups"):
+                    "stripe_size", "stripe_groups", "pretrained_window_size",
+                    "pretrained_stripe_size"):
         if seq_key in m:
             m[seq_key] = tuple(m[seq_key])
     if "mlp_ratio" in m:
@@ -90,6 +78,9 @@ def build_model_config(cfg: dict) -> GRLConfig:
     m["dtype"] = DTYPES[cfg.get("dtype", "float32")]
     m["remat"] = bool(cfg.get("remat", False))
     m["remat_policy"] = cfg.get("remat_policy")
+    if cfg.get("classification", False):
+        # a 256-way class head a channel (grlir/train.py:42-45)
+        m["out_channels"] = 256 * m.get("in_channels", 3)
     return GRLConfig(**m)
 
 
@@ -200,6 +191,8 @@ def main(argv=None):
     prog_batches = list(cfg.get("batch_sizes") or [])
     prog_patches = list(cfg.get("patch_sizes") or [])
 
+    classification = cfg.get("classification", False)
+
     # MixUp starts after six virtual epochs ("current_epoch > 5", 0-based);
     # batch_size is a process's, as grlir's is a device's
     global_batch = int(cfg["batch_size"]) * n_proc
@@ -212,7 +205,8 @@ def main(argv=None):
             crop_patch=crop_patch, use_usm_target=use_usm,
             mixup_start_step=mixup_start)
         return make_train_step(cfg["loss"], preprocess=pre,
-                               classification=cfg.get("classification", False))
+                               classification=classification,
+                               one_hot_label=cfg.get("one_hot_label", True))
 
     train_step = build_step()
 
@@ -232,7 +226,14 @@ def main(argv=None):
     best = {"value": None, "step": 0}
     # one Restorer for the run: on the card its CUDA graphs (one a padded
     # shape) replay against the weights the optimizer updates in place
-    restorer = Restorer(model, device, scale=scale, tile=cfg.get("tile", 0),
+    # a classification model validates on the image formed from its class
+    # distribution (grlir/train.py:182-192)
+    served = model
+    if classification:
+        from grlir_torch.losses.classification import FormedImage
+
+        served = FormedImage(model, cfg.get("prob_to_image", "weighted_sum"))
+    restorer = Restorer(served, device, scale=scale, tile=cfg.get("tile", 0),
                         tile_overlap=cfg.get("tile_overlap", 0))
 
     def run_validation(step: int) -> Dict[str, Dict[str, float]]:

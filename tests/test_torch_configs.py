@@ -93,8 +93,17 @@ def test_model_config_mapping():
         cfg["model"]["use_pallas_attention"] = mode
         got = build_model_config(cfg)
         assert (got.engine, got.kernels) == want
-    cfg["model"]["conv_type"] = "3conv"
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model_config(cfg)
+    # the ablation fields, once refused, map one to one, as do the remat
+    # policy and a classification head
+    ablation = {"conv_type": "3conv", "qkv_proj_type": "separable_conv",
+                "anchor_proj_type": "conv2d", "anchor_one_stage": False,
+                "out_proj_type": "conv2d", "qkv_bias": False,
+                "euclidean_dist": True, "double_window": True,
+                "stripe_square": True, "num_out_feats": 32}
+    cfg["model"].update(ablation, pretrained_window_size=[8, 8])
+    got = build_model_config({**cfg, "remat_policy": "dots", "classification": True})
+    assert {k: getattr(got, k) for k in ablation} == ablation
+    assert (got.pretrained_window_size, got.remat_policy, got.out_channels) == \
+        ((8, 8), "dots", 768)
     toks, dev = split_device(["experiment=dn/grl_p256", "device=cpu", "seed=1"])
     assert toks == ["experiment=dn/grl_p256", "seed=1"] and dev == torch.device("cpu")

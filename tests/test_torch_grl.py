@@ -136,11 +136,17 @@ def test_state_dict_keys_map_from_jax(name):
 
 
 def test_unported_variants_raise():
-    """GRL-base builds now; plain stripe attention (df 1) and unknown kernel
-    modes still raise."""
+    """GRL-base builds, and so does plain stripe attention (df 1: the
+    anchor-free stripe half, no anchor projection); unknown kernel modes
+    still raise."""
+    from grlir_torch.models.blocks import StripeAttention
+
     GRL(replace(zoo.GRL_BASE, depths=(1,)))
-    with pytest.raises(NotImplementedError, match="anchor_window_down_factor"):
-        GRL(replace(zoo.GRL_TINY, anchor_window_down_factor=1))
+    m = GRL(replace(zoo.GRL_TINY, depths=(1,), anchor_window_down_factor=1))
+    attn = m.layers[0].blocks[0].attn
+    assert isinstance(attn.stripe_attn, StripeAttention) and attn.anchor is None
+    with torch.no_grad():
+        assert m(torch.zeros(1, 32, 32, 3)).shape == (1, 128, 128, 3)
     with pytest.raises(ValueError, match="kernels"):
         GRL(replace(zoo.GRL_TINY, kernels="v3"))
 

@@ -14,6 +14,8 @@ import grlir_torch.engines.inference, grlir_torch.serve
 import grlir_torch.engines.validate, grlir_torch.utils.msgpack_params
 import grlir_torch.train, grlir_torch.configs, grlir_torch.data.module
 import grlir_torch.parallel.launch, grlir_torch.parallel.mesh, grlir_torch.b1_spread
+import grlir_torch.models.swin, grlir_torch.models.commons, grlir_torch.ablation_cells
+import grlir_torch.losses.classification, grlir_torch.utils.classification
 print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py", "PIL",
                          "optax", "orbax") if m in sys.modules))
 """
@@ -29,7 +31,9 @@ for name in names:
 import chip_smoke
 assert callable(chip_smoke.main)
 assert {"grlir_torch.parallel.launch", "grlir_torch.parallel.mesh",
-        "grlir_torch.b1_spread"} <= set(names), names
+        "grlir_torch.b1_spread", "grlir_torch.models.swin", "grlir_torch.models.commons",
+        "grlir_torch.ablation_cells", "grlir_torch.losses.classification",
+        "grlir_torch.utils.classification"} <= set(names), names
 print(len(names))
 print(sorted(m for m in sys.modules if m == "grlir" or m.startswith("grlir.")
              or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py",

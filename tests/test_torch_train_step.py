@@ -172,7 +172,8 @@ def test_img_range_and_res_scale_match_grlir(img_range, init_method):
 
 def test_eval_step_and_unported_options():
     """make_eval_step runs the model in eval mode without grad; remat
-    policies and classification training raise, naming ROADMAP A10."""
+    policies and classification training, once refused, now build (their
+    parity: tests/test_torch_remat.py, tests/test_torch_classification.py)."""
     from grlir_torch.engines.train import make_eval_step
 
     cfg = GRLConfig(**TRUNK, upsampler="pixelshuffle", upscale=2, drop_path_rate=0.3)
@@ -182,7 +183,7 @@ def test_eval_step_and_unported_options():
     assert not m.training and not y.requires_grad
     with torch.no_grad():
         assert torch.equal(y, m(x))
-    with pytest.raises(NotImplementedError, match="A10"):
-        GRL(replace(cfg, remat=True, remat_policy="dots"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_train_step({"l1": 1.0}, classification=True)
+    for policy in ("dots", "dots_no_batch"):
+        assert GRL(replace(cfg, remat=True, remat_policy=policy)).layers[0].remat_kwargs
+    assert callable(make_train_step({"l1": 1.0, "cross_entropy": 1.0},
+                                    classification=True))
