@@ -29,6 +29,7 @@ from grlir_torch.data.base import (
     load_json,
     to_float,
 )
+from grlir_torch.utils import cv2_ops
 from grlir_torch.utils.image import modcrop
 from grlir_torch.utils.matlab import imresize
 
@@ -122,14 +123,11 @@ class SRDataset(ImageBaseDataset):
         img_gt = self._cache_image(self.img_info[index][0:2])
         img_gt = modcrop(img_gt, self.scale)
         h, w = img_gt.shape[:2]
-        if h < self.patch_size * self.scale or w < self.patch_size * self.scale:
-            # grlir enlarges such an image with cv2's bilinear resize first
-            raise NotImplementedError(
-                f"{self.img_info[index][1]}: {h}x{w} is smaller than the GT "
-                f"patch {self.patch_size * self.scale}; the bilinear enlargement "
-                "grlir applies is not ported (ROADMAP A10)")
-        # MATLAB bicubic LR, per channel (grlir resizes in BGR order, which
-        # a per-channel resize does not see)
+        gt_patch = self.patch_size * self.scale
+        # grlir enlarges an image smaller than the GT patch with cv2's
+        # bilinear resize (in BGR order, which a per-channel resize does not
+        # see), then makes the MATLAB-bicubic LR
+        img_gt = cv2_ops.resize(img_gt, (max(w, gt_patch), max(h, gt_patch)))
         return imresize(img_gt / 255.0, 1 / self.scale), img_gt
 
     def __getitem__(self, index: int):

@@ -41,6 +41,7 @@ from grlir_torch.ops.block_attn import (
     _stream,
     _unit,
 )
+from grlir_torch.utils.profiling import kernel_work, tensor_bytes
 
 # head dims the kernel takes (its tiles hold 32 or 64 columns); keys
 # stream through shared memory in chunks, any number of them
@@ -70,6 +71,24 @@ def fused_window_attention_qkv_ref(qkv, logit_scale, bias, num_heads: int,
         attn = attn + _band_mask(bands, bands)
     y = _softmax_v(attn, v.transpose(-1, -2))                 # (B, nW, h, N, d)
     return y.transpose(-1, -2).reshape(B, nW, C3 // 3, N).to(qkv.dtype)
+
+
+def _qkv_work(qkv, logit_scale, bias, bands):
+    """B6's work for `profiling.cost_analysis`: the logits' and the weighted
+    sum's FLOPs as torch's FlopCounterMode counts the plain version, and
+    each operand read once, y written once."""
+    B, nW, C3, N = qkv.shape
+    return (4 * B * nW * N * N * (C3 // 3),
+            tensor_bytes(qkv, logit_scale, bias, bands) + qkv.numel() // 3 * qkv.element_size())
+
+
+def _cosine_work(q, k, v, logit_scale, bias, mask):
+    """B7a's and B7b's work, as `_qkv_work` (B7b's kernel computes B7a's
+    function: the plain packed version's off-diagonal blocks are not its
+    work)."""
+    B, nW, h, N1, d = q.shape
+    return (4 * B * nW * h * N1 * k.shape[3] * d,
+            tensor_bytes(q, k, v, logit_scale, bias, mask, q))
 
 
 def fused_window_attention_qkv(qkv, logit_scale, bias, num_heads: int,
@@ -107,6 +126,7 @@ def fused_window_attention_qkv(qkv, logit_scale, bias, num_heads: int,
         B * nW, nW, h, d, N, N, int(x.dtype == torch.bfloat16), _stream(x))
     cuda_build.check(err, "fused_window_attention_qkv", f"N={N} at d={d}")
     fused_window_attention_qkv.launches += 1
+    kernel_work(_qkv_work, x, scale, bias, bands)
     return y
 
 
@@ -206,6 +226,7 @@ def fused_cosine_attention(q, k, v, logit_scale, bias, mask=None,
     y = _launch_cosine("fused_cosine_attention", "grlir_cosine_attention_split",
                        *args)
     fused_cosine_attention.launches += 1
+    kernel_work(_cosine_work, *args)
     return y
 
 
@@ -229,6 +250,7 @@ def fused_cosine_attention_packed(q, k, v, logit_scale, bias, mask=None,
     y = _launch_cosine("fused_cosine_attention_packed",
                        "grlir_cosine_attention_packed", *args)
     fused_cosine_attention_packed.launches += 1
+    kernel_work(_cosine_work, *args)
     return y
 
 

@@ -50,6 +50,7 @@ import torch
 
 from grlir_torch.ops import cuda_build
 from grlir_torch.ops.layout import window_partition, window_reverse
+from grlir_torch.utils.profiling import kernel_work, tensor_bytes
 
 Size2 = Tuple[int, int]
 
@@ -313,6 +314,30 @@ def _check_window(name, x, wqkv, logit_scale, bias, window, bands):
     return B, H, W, C, Cw, h
 
 
+def _window_work(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None):
+    """B1's and B3's work for `profiling.cost_analysis`: the products' FLOPs
+    as torch's FlopCounterMode counts them in the plain version (the qkv
+    projection, the logits, the weighted sum), and each operand read once,
+    y written once."""
+    B, H, W, C = x.shape
+    cw = wqkv.shape[1] // 3
+    t, n = B * H * W, window[0] * window[1]
+    return (2 * t * C * 3 * cw + 4 * t * n * cw,
+            tensor_bytes(x, wqkv, bqkv, logit_scale, bias, bands) + t * cw * x.element_size())
+
+
+def _stripe_work(parts: int, steps: int, out, x, anchor, wqkv, bqkv, logit_scales,
+                 biases, stripe: Size2, df: int, bands=None, bands_a=None, x1=None):
+    """B2's and the B4 steps' work, as `_window_work`: `parts` of q, k, v
+    projected, `steps` of the two anchor attentions, output `out`."""
+    B, H, W, C = x.shape
+    cs = wqkv.shape[1] // 3
+    t, n2 = B * H * W, (stripe[0] // df) * (stripe[1] // df)
+    return (2 * t * C * parts * cs + 4 * steps * t * n2 * cs,
+            tensor_bytes(x, anchor, wqkv, bqkv, *logit_scales, *biases, bands, bands_a,
+                         x1, out))
+
+
 def window_half(x, wqkv, bqkv, logit_scale, bias, window: Size2, bands=None,
                 shift: int = 0, kernels: bool = True) -> torch.Tensor:
     """Window half, routed as the TPU routes it: small windows to B1,
@@ -366,6 +391,7 @@ def _window_half_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
             _ptr(y), B, H, W, C, Cw, h, wh, ww, int(shift), _stream(x))
     cuda_build.check(err, "window_half", f"window {window} at d={d}")
     _count_route(window_half, x)
+    kernel_work(_window_work, x, wqkv, bqkv, logit_scale, bias, window, bands)
     return y
 
 
@@ -434,6 +460,7 @@ def _window_half_large_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
             _ptr(ws), _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "window_half_large", f"window {window} at d={d}")
     _count_route(window_half_large, x)
+    kernel_work(_window_work, x, wqkv, bqkv, logit_scale, bias, window, bands)
     return y
 
 
@@ -659,6 +686,8 @@ def _stripe_half_kernel(x, anchor, wqkv, bqkv, logit_scale1, logit_scale2,
     cuda_build.check(err, "stripe_half", f"stripe {stripe}/df {df} at "
                      f"d={Cs // h}")
     _count_route(stripe_half, x)
+    kernel_work(_stripe_work, 3, 2, y, x, anchor, wqkv, bqkv, (s1, s2), (b1, b2),
+                stripe, df, bands, bands_a)
     return y
 
 
@@ -744,6 +773,8 @@ def _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
             *geom, _stream(x))
     cuda_build.check(err, "stripe_a2w_large", f"stripe {stripe}/df {df}")
     _count_route(stripe_a2w_large, x)
+    kernel_work(_stripe_work, 2, 1, x1, x, anchor, wqkv, bqkv, (s1,), (b1,), stripe,
+                df, bands, bands_a)
     return x1
 
 
@@ -808,6 +839,8 @@ def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
             _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "stripe_w2a_large", f"stripe {stripe}/df {df}")
     _count_route(stripe_w2a_large, x)
+    kernel_work(_stripe_work, 1, 1, y, x, anchor, wqkv, bqkv, (s2,), (b2,), stripe,
+                df, bands, bands_a, x1)
     return y
 
 

@@ -39,6 +39,7 @@ from grlir_torch.ops.block_attn import (
     _stream,
     _unit,
 )
+from grlir_torch.utils.profiling import kernel_work, tensor_bytes
 
 
 def _bias_dtype(x: torch.Tensor) -> torch.dtype:
@@ -64,6 +65,15 @@ def flash_rect_attention_ref(q, k, v, logit_scale, bias, bands_q=None,
         attn = attn + _band_mask(bands_q, bands_k)
     p = torch.softmax(attn, -1).to(mm).float()
     return (v.to(mm).float() @ p.transpose(-1, -2)).to(mm)
+
+
+def _flash_work(q, k, v, logit_scale, bias, bands_q=None, bands_k=None):
+    """B5's work for `profiling.cost_analysis`: the logits' and the weighted
+    sum's FLOPs as torch's FlopCounterMode counts the plain version, and
+    each operand read once, y written once."""
+    B, nW, h, d, N1 = q.shape
+    return (4 * B * nW * h * N1 * k.shape[4] * d,
+            tensor_bytes(q, k, v, logit_scale, bias, bands_q, bands_k, q))
 
 
 def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
@@ -116,6 +126,7 @@ def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
         N2, int(q.dtype == torch.bfloat16), _stream(q))
     cuda_build.check(err, "flash_rect_attention", f"N1={N1}, N2={N2} at d={d}")
     _count_route(flash_rect_attention, q)
+    kernel_work(_flash_work, *args)
     return y
 
 

@@ -10,9 +10,12 @@ Loads reference .ckpt/.pth files (Lightning `model.`/`model_g.` prefixes or
 a raw state_dict), the `.msgpack` files of `python -m grlir.utils.convert`
 (read without the msgpack package), and the checkpoint directories of
 `python -m grlir_torch.train` (a run's `checkpoints/` directory, whose latest
-step is read, or one `step_N` directory in it), with strict key matching.
-grlir's orbax checkpoint directories are not read.  Images are read and
-written as PNG by `grlir_torch.utils.imageio`.
+step is read, or one `step_N` directory in it), and grlir's orbax checkpoint
+directories (a `checkpoints/` directory of `python -m grlir.train`, whose
+newest step is read, or one `<step>` directory in it; read without orbax by
+`grlir_torch.utils.orbax_read`), with strict key matching.  Images are
+read by `grlir_torch.utils.imageio` in every format cv2 reads them in
+grlir (PNG, JPEG, BMP, TIFF, PGM/PPM) and written as PNG.
 
 `--engine` picks the attention engine (`GRLConfig.engine`) and `--kernels`
 whether its CUDA kernels run.  The JAX CLI's `--pallas` choices map so:
@@ -35,7 +38,7 @@ from grlir_torch.engines.inference import Restorer, reflect_pad_to
 from grlir_torch.models import zoo
 from grlir_torch.models.blocks import ENGINE_HALVES
 from grlir_torch.models.grl import GRL
-from grlir_torch.utils import msgpack_params
+from grlir_torch.utils import msgpack_params, orbax_read
 from grlir_torch.utils.checkpoint import read_step_dir
 from grlir_torch.utils.convert import jax_params_to_state_dict, strip_prefix
 from grlir_torch.utils.image import to_uint8
@@ -46,24 +49,23 @@ KERNELS = {"auto": "auto", "on": True, "off": False}
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a reference torch checkpoint, a flax .msgpack parameter file or
-    a checkpoint directory of the port's trainer into `model` (strict); any
-    other directory (grlir's orbax checkpoints) raises."""
+    """Load a reference torch checkpoint, a flax .msgpack parameter file, a
+    checkpoint directory of the port's trainer or a grlir orbax checkpoint
+    directory (the params of its newest step, as grlir's
+    `restore_params_only` takes them) into `model` (strict)."""
     path = osp.expanduser(path)
-    if osp.isdir(path):
-        saved = read_step_dir(path)
-        if saved is None:
-            raise NotImplementedError(
-                f"{path}: orbax checkpoint directories are not read by the port "
-                "yet (ROADMAP A10b); convert the released .ckpt with "
-                "`python -m grlir.utils.convert` to a .msgpack file")
-        try:
-            model.load_state_dict(saved["model"], strict=True)
-        except RuntimeError as e:
-            raise KeyError(f"{path} does not match the model:\n{e}") from e
-        return
-    if path.endswith(".msgpack"):
-        sd = jax_params_to_state_dict(msgpack_params.load(path))
+    if osp.isdir(path) or path.endswith(".msgpack"):
+        if not osp.isdir(path):
+            sd = jax_params_to_state_dict(msgpack_params.load(path))
+        elif orbax_read.is_orbax_dir(path):
+            sd = jax_params_to_state_dict(orbax_read.read_params(path))
+        else:
+            saved = read_step_dir(path)
+            if saved is None:
+                raise FileNotFoundError(
+                    f"{path}: neither a checkpoint directory of the port's trainer "
+                    "nor a grlir orbax checkpoint directory")
+            sd = saved["model"]
         try:
             model.load_state_dict(sd, strict=True)
         except RuntimeError as e:

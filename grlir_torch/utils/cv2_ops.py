@@ -7,7 +7,9 @@ makes, on float32 (or float64) HWC or HW images, so that the port needs no
 - `filter2d`: `cv2.filter2D(img, -1, kernel)`, a correlation;
 - `resize`: `cv2.resize(img, (w, h), interpolation)` for INTER_LINEAR (1),
   INTER_CUBIC (2, A = -0.75) and INTER_AREA (3, OpenCV's exact-area
-  weights when both axes shrink, its bilinear emulation otherwise);
+  weights when both axes shrink, its bilinear emulation otherwise), and
+  uint8 INTER_LINEAR in OpenCV's own fixed point, bit-equal (the SR
+  dataset's enlargement of a small training image);
 - `rgb_to_hsv` / `hsv_to_rgb`: `cv2.COLOR_RGB2HSV` / `COLOR_HSV2RGB` for
   float images, H in degrees;
 - `copy_make_border_reflect101`: `cv2.copyMakeBorder(...,
@@ -172,15 +174,54 @@ def _area_weights(ssize: int, dsize: int) -> np.ndarray:
     return w
 
 
+def _linear_u8_coeffs(ssize: int, dsize: int, clamp: bool):
+    """OpenCV's INTER_LINEAR source indices and 11-bit fixed-point weights
+    of one axis: fx in float32, weights rounded from (1 - fx, fx) * 2048.
+    The x axis clamps fx to 0 at the borders; the y axis keeps its weights
+    and only clamps the rows it reads."""
+    scale = 1.0 / (dsize / ssize)
+    f = ((np.arange(dsize) + 0.5) * scale - 0.5).astype(np.float32)
+    s0 = np.floor(f).astype(np.int64)
+    f = (f - s0.astype(np.float32)).astype(np.float32)
+    if clamp:
+        edge = (s0 < 0) | (s0 >= ssize - 1)
+        f = np.where(edge, np.float32(0), f)
+        s0 = np.clip(s0, 0, ssize - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    return s0, w0, w1
+
+
+def _resize_linear_u8(img: np.ndarray, w_out: int, h_out: int) -> np.ndarray:
+    """cv2.resize(INTER_LINEAR) of uint8 in OpenCV's fixed point: a
+    horizontal pass of 11-bit weights into int32 rows, then the vertical
+    pass as OpenCV's vector code computes it (VResizeLinearVec_32s8u): each
+    row >> 4, times its 11-bit weight, high 16 bits kept, summed, then
+    (sum + 2) >> 2 saturated to uint8."""
+    h_in, w_in = img.shape[:2]
+    x = img.reshape(h_in, w_in, -1).astype(np.int64)
+    sx, ax0, ax1 = _linear_u8_coeffs(w_in, w_out, True)
+    sy, by0, by1 = _linear_u8_coeffs(h_in, h_out, False)
+    rows = (x[:, sx] * ax0[None, :, None]
+            + x[:, np.minimum(sx + 1, w_in - 1)] * ax1[None, :, None])
+    r0 = rows[np.clip(sy, 0, h_in - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, h_in - 1)] >> 4
+    v = (((r0 * by0[:, None, None]) >> 16) + ((r1 * by1[:, None, None]) >> 16) + 2) >> 2
+    return np.clip(v, 0, 255).astype(np.uint8).reshape((h_out, w_out) + img.shape[2:])
+
+
 def resize(img: np.ndarray, dsize, interpolation: int = INTER_LINEAR) -> np.ndarray:
     """cv2.resize(img, dsize=(w, h), interpolation=...) for INTER_LINEAR,
-    INTER_CUBIC and INTER_AREA."""
+    INTER_CUBIC and INTER_AREA; uint8 INTER_LINEAR in OpenCV's fixed point,
+    bit-equal, everything else in float64 cast back to the input type."""
     w_out, h_out = int(dsize[0]), int(dsize[1])
     h_in, w_in = img.shape[:2]
     if (h_out, w_out) == (h_in, w_in):
         return img.copy()
     if interpolation not in (INTER_LINEAR, INTER_CUBIC, INTER_AREA):
         raise ValueError(f"interpolation {interpolation}: 1, 2 or 3")
+    if interpolation == INTER_LINEAR and img.dtype == np.uint8:
+        return _resize_linear_u8(img, w_out, h_out)
     if interpolation == INTER_AREA and w_in >= w_out and h_in >= h_out:
         wy, wx = _area_weights(h_in, h_out), _area_weights(w_in, w_out)
     else:

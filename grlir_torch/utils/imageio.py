@@ -1,16 +1,22 @@
-"""PNG image files with numpy and zlib only: the port's replacement for
+"""Image files with numpy, zlib and struct only: the port's replacement for
 `cv2.imread` / `cv2.imwrite`, which the GPU machine does not have.
 
-`imread` reads non-interlaced PNG files of every colour type (gray, RGB,
-palette, gray + alpha, RGBA) at bit depths 8 and 16, undoes all five row
-filters, and converts the way
-`cv2.imread` does with IMREAD_COLOR or IMREAD_GRAYSCALE: 16-bit samples keep
-their high byte, alpha is dropped, gray is repeated into three channels,
-and colour becomes gray by libpng's fixed-point weights (9797, 19234, 3737)
-/ 2^15, truncated for 8-bit samples and rounded at 16 bits before the high
-byte is kept.  The results are RGB (not cv2's BGR), as
-`grlir.data.base.imread` returns them.  Other formats, other bit depths
-and interlaced PNG raise NotImplementedError (ROADMAP A10).
+`imread` reads every format that grlir's datasets and server read through
+`cv2.imread`, chosen by the file's first bytes as cv2 chooses, not by its
+extension: PNG here, JPEG (`jpeg_decode`), BMP (`bmp`), TIFF (`tiff`) and
+PGM/PPM (`pnm`) in sibling modules.  Each returns what
+`grlir.data.base.imread` returns, bit for bit: cv2's IMREAD_COLOR read as
+RGB, or its IMREAD_GRAYSCALE read, which each codec converts its own way
+(libpng's weights here, libjpeg's Y plane for YCbCr JPEG, OpenCV's
+fixed-point weights for BMP, TIFF and PNM).  Other formats raise
+NotImplementedError.
+
+PNG: every colour type (gray, RGB, palette, gray + alpha, RGBA) at bit
+depths 8 and 16, non-interlaced or Adam7 (each pass unfiltered on its own),
+all five row filters.  16-bit samples keep their high byte, alpha is
+dropped, gray is repeated into three channels, and colour becomes gray by
+libpng's fixed-point weights (9797, 19234, 3737) / 2^15, truncated for
+8-bit samples and rounded at 16 bits before the high byte is kept.
 
 `imwrite` writes uint8 gray, RGB or RGBA as PNG (filter 0, zlib level 6).
 """
@@ -30,10 +36,15 @@ GRAY_WEIGHTS = (9797, 19234, 3737)
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
+# (x0, y0, dx, dy) of the seven Adam7 passes
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
 def _unsupported(path: str, what: str):
     return NotImplementedError(
-        f"{path}: {what} is not read by the port's imageio, which reads "
-        "non-interlaced PNG only (other formats: ROADMAP A10)")
+        f"{path}: {what} is not read by the port's imageio (PNG, JPEG, BMP, "
+        "TIFF, PGM/PPM)")
 
 
 def _chunks(data: bytes, path: str):
@@ -119,17 +130,26 @@ def _decode_png(path: str, data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise _unsupported(path, "an interlaced (Adam7) PNG")
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: unknown PNG colour type {ctype}")
     if depth not in (8, 16) or (ctype == 3 and depth != 8):
         raise _unsupported(path, f"PNG colour type {ctype} at bit depth {depth}")
     channels = _CHANNELS[ctype]
     bpp = channels * depth // 8
-    stride = width * bpp
-    scan = _unfilter(zlib.decompress(b"".join(idat)), height, stride, bpp)
-    px = _samples(scan, width, depth, channels)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            n = ph * (pw * bpp + 1)
+            scan = _unfilter(raw[pos:pos + n], ph, pw * bpp, bpp)
+            px[y0::dy, x0::dx] = _samples(scan, pw, depth, channels)
+            pos += n
+    else:
+        px = _samples(_unfilter(raw, height, width * bpp, bpp), width, depth, channels)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without PLTE")
@@ -147,6 +167,22 @@ def _to_gray(rgb: np.ndarray) -> np.ndarray:
     return (s >> 15).astype(np.uint8)
 
 
+def _decoder(data: bytes):
+    """The decode function of a non-PNG file by its magic bytes, as
+    cv2's codec search by signature, or None."""
+    if data[:3] == b"\xff\xd8\xff":
+        from grlir_torch.utils.jpeg_decode import decode
+    elif data[:2] == b"BM":
+        from grlir_torch.utils.bmp import decode
+    elif data[:4] in (b"II*\0", b"MM\0*"):
+        from grlir_torch.utils.tiff import decode
+    elif data[:1] == b"P" and data[1:2] in b"123456" and len(data) > 2 and data[2:3].isspace():
+        from grlir_torch.utils.pnm import decode
+    else:
+        return None
+    return decode
+
+
 def imread(path: str, num_channels: int = 3, jpeg_gray_y: bool = False) -> np.ndarray:
     """An image file as uint8 HWC: RGB for num_channels 3, (H, W, 1) gray
     for 1 (the Y channel of the colour image when jpeg_gray_y, as
@@ -154,8 +190,14 @@ def imread(path: str, num_channels: int = 3, jpeg_gray_y: bool = False) -> np.nd
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(PNG_SIGNATURE):
-        ext = osp.splitext(path)[1] or "a file without extension"
-        raise _unsupported(path, f"format {ext!r}")
+        decoder = _decoder(data)
+        if decoder is None:
+            raise _unsupported(path, f"a file starting {data[:8]!r}")
+        gray = num_channels == 1 and not jpeg_gray_y
+        img = decoder(data, gray)
+        if gray:
+            return img[..., None]
+        return rgb2ycbcr_y(img)[..., None] if num_channels == 1 else img
     px = _decode_png(path, data)
     color = px.shape[-1] >= 3
     if num_channels == 1 and not jpeg_gray_y:
@@ -187,7 +229,8 @@ def imwrite(path: str, img: np.ndarray) -> None:
     """Write uint8 (H, W), (H, W, 1), (H, W, 3) RGB or (H, W, 4) RGBA as a
     PNG file."""
     if not path.lower().endswith(".png"):
-        raise _unsupported(path, f"writing format {osp.splitext(path)[1]!r}")
+        raise NotImplementedError(f"{path}: the port's imwrite writes PNG only, "
+                                  f"not {osp.splitext(path)[1]!r}")
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise TypeError(f"imwrite takes uint8, got {img.dtype}")

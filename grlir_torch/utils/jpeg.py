@@ -222,13 +222,55 @@ def _fancy_upsample(c: np.ndarray) -> np.ndarray:
     return out
 
 
+def _h2v1_fancy_upsample(c: np.ndarray) -> np.ndarray:
+    """jdsample.c h2v1_fancy_upsample of a (h, w) plane, w >= 2: (h, 2w),
+    each output 3/4 of its nearer and 1/4 of its further input sample."""
+    left = np.concatenate([c[:, :1], c[:, :-1]], axis=1)
+    right = np.concatenate([c[:, 1:], c[:, -1:]], axis=1)
+    even = (3 * c + left + 1) >> 2
+    odd = (3 * c + right + 2) >> 2
+    even[:, 0] = c[:, 0]
+    odd[:, -1] = c[:, -1]
+    out = np.empty((c.shape[0], 2 * c.shape[1]), np.int64)
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _h1v2_fancy_upsample(c: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's h1v2_fancy_upsample of a (h, w) plane, its context
+    rows replicated at the top and bottom: (2h, w)."""
+    h = c.shape[0]
+    up = c[np.maximum(np.arange(h) - 1, 0)]
+    down = c[np.minimum(np.arange(h) + 1, h - 1)]
+    out = np.empty((2 * h, c.shape[1]), np.int64)
+    out[0::2] = (3 * c + up + 1) >> 2
+    out[1::2] = (3 * c + down + 2) >> 2
+    return out
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """jdcolor.c ycc_rgb_convert of int planes (Cb, Cr centred on 128):
+    (H, W, 3) uint8 RGB."""
+    cb, cr = cb - 128, cr - 128
+    r = y + ((_fix16(1.40200) * cr + _ONE_HALF) >> _SCALEBITS)
+    g = y + ((-_fix16(0.34414) * cb + _ONE_HALF - _fix16(0.71414) * cr) >> _SCALEBITS)
+    b = y + ((_fix16(1.77200) * cb + _ONE_HALF) >> _SCALEBITS)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def rgb_to_y(r: np.ndarray, g: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """jccolor.c's (and jdcolor.c rgb_gray_convert's) luma of int planes."""
+    return (_fix16(0.29900) * r + _fix16(0.58700) * g + _fix16(0.11400) * b
+            + _ONE_HALF) >> _SCALEBITS
+
+
 def jpeg_roundtrip(rgb: np.ndarray, quality: int) -> np.ndarray:
     """(H, W, 3) uint8 RGB -> the uint8 RGB image that a JPEG encode at
     `quality` and a decode give."""
     h, w = rgb.shape[:2]
     r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
-    y = (_fix16(0.29900) * r + _fix16(0.58700) * g + _fix16(0.11400) * b
-         + _ONE_HALF) >> _SCALEBITS
+    y = rgb_to_y(r, g, b)
     center = (128 << _SCALEBITS) + _ONE_HALF - 1
     cb = (-_fix16(0.16874) * r - _fix16(0.33126) * g + _fix16(0.5) * b
           + center) >> _SCALEBITS
@@ -256,14 +298,8 @@ def jpeg_roundtrip(rgb: np.ndarray, quality: int) -> np.ndarray:
             up = _fancy_upsample(dec)
         else:
             up = np.repeat(np.repeat(dec, 2, 0), 2, 1)
-        chroma.append(up[:h, :w] - 128)
-    cb_d, cr_d = chroma
-
-    r_out = y_dec + ((_fix16(1.40200) * cr_d + _ONE_HALF) >> _SCALEBITS)
-    g_out = y_dec + ((-_fix16(0.34414) * cb_d + _ONE_HALF - _fix16(0.71414) * cr_d)
-                     >> _SCALEBITS)
-    b_out = y_dec + ((_fix16(1.77200) * cb_d + _ONE_HALF) >> _SCALEBITS)
-    return np.clip(np.stack([r_out, g_out, b_out], -1), 0, 255).astype(np.uint8)
+        chroma.append(up[:h, :w])
+    return ycc_to_rgb(y_dec, *chroma)
 
 
 def jpeg_roundtrip_gray(gray: np.ndarray, quality: int) -> np.ndarray:

@@ -92,7 +92,7 @@ def test_serve_msgpack_writes_the_state_dicts_pngs(tiny_params, tmp_path):
         np.testing.assert_array_equal(got, want)
 
     model = GRL(zoo.make_config("tiny"))
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(FileNotFoundError, match="neither"):
         serve.load_checkpoint(model, str(tmp_path))
     with pytest.raises(KeyError, match="does not match"):
         serve.load_checkpoint(GRL(zoo.make_config("tiny", upscale=2)), str(msgpack_path))

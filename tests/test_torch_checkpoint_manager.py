@@ -116,5 +116,5 @@ def test_resume_discovery_and_serve_load(tmp_path):
             assert torch.equal(a, b), k
     with pytest.raises(KeyError, match="does not match"):
         serve.load_checkpoint(GRL(zoo.make_config("tiny")), str(ck))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match="orbax"):
         serve.load_checkpoint(_model(1), str(out / "version_1" / "checkpoints"))

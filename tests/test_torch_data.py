@@ -96,9 +96,18 @@ def _assert_batches_equal(got, want):
 
 
 def _first(loader, n):
-    out, it = [], loader.infinite()
-    for _ in range(n):
-        out.append(next(it))
+    """The first n batches of `loader.infinite()`.  The epoch that holds
+    the last of them is drained to its end, so that the loader's producer
+    thread has finished (and its process pool is closed) before the call
+    returns: a producer left running draws beside the next loader's
+    (ROADMAP C11)."""
+    out, epoch = [], 0
+    while len(out) < n:
+        loader.set_epoch(epoch)
+        for batch in loader:
+            if len(out) < n:
+                out.append(batch)
+        epoch += 1
     loader.close()
     return out
 

@@ -141,24 +141,26 @@ def test_written_png_reads_back_in_cv2(tmp_path, shape):
 
 
 def test_unsupported_formats_raise(tmp_path):
+    """JPEG, BMP and Adam7 PNG are read now, bit-equal to cv2
+    (tests/test_torch_imageio_formats.py covers every variant); a format
+    the port has no reader for (WebP), a 4-bit PNG and writing anything
+    but PNG raise."""
     img = np.random.default_rng(0).integers(0, 256, (8, 8, 3), np.uint8)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
     cv2.imwrite(str(tmp_path / "a.bmp"), img)
     for name in ("a.jpg", "a.bmp"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            imread(str(tmp_path / name))
-    Image.fromarray(img).save(tmp_path / "i.png", interlace=1)
-    if Image.open(tmp_path / "i.png").info.get("interlace"):
-        with pytest.raises(NotImplementedError, match="interlaced"):
-            imread(str(tmp_path / "i.png"))
-    else:   # PIL wrote no Adam7 file: set the IHDR flag by hand
-        _write_png(tmp_path / "i.png", img, 2, 8)
-        data = bytearray((tmp_path / "i.png").read_bytes())
-        data[28] = 1
-        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-        (tmp_path / "i.png").write_bytes(bytes(data))
-        with pytest.raises(NotImplementedError, match="interlaced"):
-            imread(str(tmp_path / "i.png"))
+        np.testing.assert_array_equal(imread(str(tmp_path / name)),
+                                      _cv2_rgb(str(tmp_path / name)))
+    _write_png(tmp_path / "i.png", img, 2, 8)       # set the IHDR's Adam7 flag
+    data = bytearray((tmp_path / "i.png").read_bytes())
+    data[28] = 1
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    (tmp_path / "i.png").write_bytes(bytes(data))
+    with pytest.raises(ValueError):             # rows written non-interlaced
+        imread(str(tmp_path / "i.png"))
+    cv2.imwrite(str(tmp_path / "a.webp"), img)
+    with pytest.raises(NotImplementedError, match="not read"):
+        imread(str(tmp_path / "a.webp"))
     _write_png(tmp_path / "d4.png", img[..., :1], 0, 8)     # claim 4-bit gray
     data = bytearray((tmp_path / "d4.png").read_bytes())
     data[24] = 4
@@ -166,7 +168,7 @@ def test_unsupported_formats_raise(tmp_path):
     (tmp_path / "d4.png").write_bytes(bytes(data))
     with pytest.raises(NotImplementedError, match="bit depth 4"):
         imread(str(tmp_path / "d4.png"))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="PNG only"):
         imwrite(str(tmp_path / "o.jpg"), img)
 
 

@@ -16,8 +16,11 @@ import grlir_torch.train, grlir_torch.configs, grlir_torch.data.module
 import grlir_torch.parallel.launch, grlir_torch.parallel.mesh, grlir_torch.b1_spread
 import grlir_torch.models.swin, grlir_torch.models.commons, grlir_torch.ablation_cells
 import grlir_torch.losses.classification, grlir_torch.utils.classification
+import grlir_torch.utils.imageio, grlir_torch.utils.orbax_read, grlir_torch.plot_metrics
+import grlir_torch.utils.profiling
 print(sorted(m for m in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py", "PIL",
-                         "optax", "orbax") if m in sys.modules))
+                         "optax", "orbax", "tensorstore", "zstandard", "matplotlib")
+             if m in sys.modules))
 """
 
 # every module of grlir_torch, and chip_smoke (whose import must not run
@@ -33,11 +36,15 @@ assert callable(chip_smoke.main)
 assert {"grlir_torch.parallel.launch", "grlir_torch.parallel.mesh",
         "grlir_torch.b1_spread", "grlir_torch.models.swin", "grlir_torch.models.commons",
         "grlir_torch.ablation_cells", "grlir_torch.losses.classification",
-        "grlir_torch.utils.classification"} <= set(names), names
+        "grlir_torch.utils.classification", "grlir_torch.utils.jpeg_decode",
+        "grlir_torch.utils.bmp", "grlir_torch.utils.tiff", "grlir_torch.utils.pnm",
+        "grlir_torch.utils.zstd", "grlir_torch.utils.orbax_read",
+        "grlir_torch.plot_metrics"} <= set(names), names
 print(len(names))
 print(sorted(m for m in sys.modules if m == "grlir" or m.startswith("grlir.")
              or m.split(".")[0] in ("jax", "flax", "yaml", "cv2", "msgpack", "h5py",
-                                    "PIL", "optax", "orbax")))
+                                    "PIL", "optax", "orbax", "tensorstore",
+                                    "zstandard", "matplotlib")))
 """
 
 
