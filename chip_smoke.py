@@ -112,7 +112,11 @@ Phases, each printing its numbers on lines of its own and raising on failure:
      to 6 (the step, both optimizer states and the u vectors checked);
      launch counts reset just before stage 2 and read just after (B1, B4a
      and B4b must launch, no half unrouted); the host time of a BSR
-     sample; the gates of `grlir_torch/gan_cells.py` for both protocols
+     sample; the BSR data's OpenCV calls (`grlir_torch/bsr_ops_cells.py`:
+     GaussianBlur, filter2D, the three resizes, HSV and one
+     degradation_sr2 draw at the 400^2 crop's shapes) bit for bit
+     against the committed cv2 fixture; the gates of
+     `grlir_torch/gan_cells.py` for both protocols
      (fp32 one step: losses within 1e-5 relative, every G and D gradient
      within 1e-3 max|g| + 1e-7, u within 1e-5; bf16 ten steps: finite and
      within 2e-2); then the GAN step timed per protocol, kernels off and
@@ -990,11 +994,9 @@ def gan_phase(dev, smi, counts, routes):
     import os
     import tempfile
 
+    from grlir_torch import bsr_host_time, bsr_ops_cells as bsr_ops
     from grlir_torch import gan_cells as gc
     from grlir_torch import serve
-    from grlir_torch.data.base import TRAIN
-    from grlir_torch.data.bsr import BSRDataset
-    from grlir_torch.data.tasks import TaskConfig
     from grlir_torch.engines.gan import GANLossConfig, GANTrainState, make_gan_train_step
     from grlir_torch.ops import block_attn as ba
     from grlir_torch.train import main as train_main
@@ -1105,18 +1107,19 @@ def gan_phase(dev, smi, counts, routes):
         pygc.collect()
 
         # ---- BSR host time (the degradation pipeline, one process)
-        ds = BSRDataset(TaskConfig(name="bsr", dataset="ost", scale=4, patch_size=gc.LR_HW),
-                        TRAIN)
-        ds.seed(0)
-        host = []
-        for i in range(BSR_HOST_ITEMS):
-            t0 = time.perf_counter()
-            item = ds[i % len(ds.img_info)]
-            host.append((time.perf_counter() - t0) * 1e3)
+        host, item = bsr_host_time.sample_ms(BSR_HOST_ITEMS)
         print(f"[gan] BSR train sample on the host (crop 400, jitter, USM, degradation with "
               f"ISP, JPEG, patch; one process): {spread(host)} over {BSR_HOST_ITEMS} samples "
               f"(the first builds the ISP's tone LUTs), shapes lq {item['img_lq'].shape} gt "
               f"{item['img_gt'].shape}")
+        # ---- the BSR data's OpenCV calls against cv2's outputs (committed fixture)
+        rows = bsr_ops.check()
+        for r in rows:
+            print(f"[gan] bsr_ops {r['name']}: {'bit-equal' if r['ok'] else 'NOT bit-equal'} "
+                  f"to cv2, {r['ms']:.1f} ms")
+        check(all(r["ok"] for r in rows),
+              f"gan: cv2_ops bit-equal to the cv2 fixture "
+              f"({[r['name'] for r in rows if not r['ok']]} differ)")
     finally:
         GANTrainState.load_state_dicts = load_dicts
         serve.load_checkpoint = load_ckpt
