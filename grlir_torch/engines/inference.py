@@ -19,6 +19,9 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from grlir_torch.utils.profiling import (RESTORER_CALL, RESTORER_CAPTURE, RESTORER_COPY_IN,
+                                         RESTORER_COPY_OUT, RESTORER_REPLAY, span)
+
 
 def reflect_pad_to(img: np.ndarray, target_hw: Tuple[int, int]) -> np.ndarray:
     """Pad (..., H, W, C) to target (H', W') bottom/right with reflect (edge
@@ -77,7 +80,9 @@ class Restorer:
     one memory pool: they replay one after another, and each replay's
     output is copied out before the next.  The model's weights are read
     where they lie on every replay, so a write to them in place is seen by
-    the next call.  A capture that fails raises.
+    the next call.  A capture that fails raises.  Each call records the
+    spans `restorer.*` of `grlir_torch.utils.profiling` while recording is
+    on (off by default).
 
     mesh: the processes that share each call (all of them call it with the
     same images): each runs its contiguous rows of every batch or tile
@@ -106,39 +111,43 @@ class Restorer:
 
     def _capture(self, x: torch.Tensor) -> _Graph:
         """Warm up on a side stream, then capture one forward on x's shape."""
-        static_in = torch.empty(x.shape, dtype=torch.float32, device=self.device)
-        static_in.copy_(x)
-        with torch.cuda.device(self.device), torch.no_grad():
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_FORWARDS):
-                    self.model(static_in)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=self._pool):
-                    static_out = self.model(static_in)
-            except RuntimeError:
-                _release_cuda_generator()
-                raise
-        return _Graph(static_in, graph, static_out)
+        with span(RESTORER_CAPTURE):
+            static_in = torch.empty(x.shape, dtype=torch.float32, device=self.device)
+            static_in.copy_(x)
+            with torch.cuda.device(self.device), torch.no_grad():
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(WARMUP_FORWARDS):
+                        self.model(static_in)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool):
+                        static_out = self.model(static_in)
+                except RuntimeError:
+                    _release_cuda_generator()
+                    raise
+            return _Graph(static_in, graph, static_out)
 
     def _run(self, img: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
         if self.device.type != "cuda":
+            x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
             with torch.no_grad():
                 return self.model(x.to(self.device)).float().cpu().numpy()
-        g = self.graphs.get(tuple(x.shape))
+        with span(RESTORER_COPY_IN):
+            x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))
+            g = self.graphs.get(tuple(x.shape))
+            if g is not None:
+                g.static_in.copy_(x)
         if g is None:
             g = self.graphs[tuple(x.shape)] = self._capture(x)
-        else:
-            g.static_in.copy_(x)
-        with torch.cuda.device(self.device):
+        with span(RESTORER_REPLAY), torch.cuda.device(self.device):
             g.graph.replay()
-        return g.static_out.float().cpu().numpy()
+        with span(RESTORER_COPY_OUT):
+            return g.static_out.float().cpu().numpy()
 
     def _apply(self, img: np.ndarray) -> np.ndarray:
         """The model on a batch: all of it, or across the mesh this
@@ -153,11 +162,12 @@ class Restorer:
 
     def __call__(self, img: np.ndarray) -> np.ndarray:
         """img: (B, H, W, C) float32 in [0, 1] -> (B, H*scale, W*scale, C_out)."""
-        if self.tile == 0:
-            if self.shape_bucket:
-                return self._forward_bucketed(img)
-            return self._apply(img)
-        return self.forward_tile(img)
+        with span(RESTORER_CALL):
+            if self.tile == 0:
+                if self.shape_bucket:
+                    return self._forward_bucketed(img)
+                return self._apply(img)
+            return self.forward_tile(img)
 
     def _forward_bucketed(self, img: np.ndarray) -> np.ndarray:
         _, h, w, _ = img.shape

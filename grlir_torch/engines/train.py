@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from grlir_torch.losses import LOSS_FNS, weighted_loss
+from grlir_torch.utils.profiling import (TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_STEP,
+                                         TRAIN_UPDATE, span)
 
 
 @dataclass
@@ -82,7 +84,9 @@ def make_train_step(
     batch: dict of tensors on the model's device.  The step updates the
     state in place and returns {"loss", "loss_<name>"} as detached 0-d
     tensors: reading them (float()) waits for the device, so the caller
-    reads them only on the steps it logs.
+    reads them only on the steps it logs.  Each step records the spans
+    `train.*` of `grlir_torch.utils.profiling` while recording is on (off
+    by default).
 
     classification: the model's head gives 256 class logits a channel; the
     pixel losses apply to the expected image under their softmax and
@@ -99,26 +103,31 @@ def make_train_step(
         losses = build_loss(loss_cfg)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]):
-        if preprocess is not None:
-            lq, gt = preprocess(batch, state.rng, state.step)
-        else:
-            lq, gt = batch["img_lq"], batch["img_gt"]
-        model = state.model
-        model.train()
-        pred = model(lq, drop_masks=drop_masks(model, lq.shape[0], state.generator, lq.device))
-        if classification:
-            total, parts = cls_loss(pred, gt)
-        else:
-            total, parts = weighted_loss(losses, pred, gt)
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        metrics = {"loss": total.detach(),
-                   **{f"loss_{k}": v.detach() for k, v in parts.items()}}
-        reduce_step(model, metrics)
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return metrics
+        with span(TRAIN_STEP):
+            if preprocess is not None:
+                lq, gt = preprocess(batch, state.rng, state.step)
+            else:
+                lq, gt = batch["img_lq"], batch["img_gt"]
+            model = state.model
+            model.train()
+            with span(TRAIN_FORWARD):
+                masks = drop_masks(model, lq.shape[0], state.generator, lq.device)
+                pred = model(lq, drop_masks=masks)
+            if classification:
+                total, parts = cls_loss(pred, gt)
+            else:
+                total, parts = weighted_loss(losses, pred, gt)
+            with span(TRAIN_BACKWARD):
+                state.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            metrics = {"loss": total.detach(),
+                       **{f"loss_{k}": v.detach() for k, v in parts.items()}}
+            reduce_step(model, metrics)
+            with span(TRAIN_UPDATE):
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            return metrics
 
     return step_fn
 

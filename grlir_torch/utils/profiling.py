@@ -1,7 +1,7 @@
 """Profiling and observability hooks, the port of `grlir.utils.profiling`:
 a trace of a block (`torch.profiler`, Chrome/Perfetto JSON), device memory
 stats, a program's FLOPs and bytes for roofline checks (`cost_analysis`),
-step timing and a JSONL scalar log.
+the program's own spans (`span`) and a JSONL scalar log.
 
 The port's CUDA kernels are called through ctypes, not as aten operators,
 so neither torch's FLOP counter nor a dispatch mode sees them: each kernel
@@ -15,11 +15,28 @@ import contextlib
 import json
 import os
 import os.path as osp
+import threading
 import time
-from typing import Callable, Dict
+from itertools import count
+from typing import Callable, Dict, List, NamedTuple, Optional
+
+from torch.autograd import profiler as _torch_profiler
 
 # the [flops, bytes] accumulators of the cost analyses running now
 _ACTIVE: list = []
+
+# The program's spans, one name a layer boundary (the benchmark's readers
+# and PERF.md use these strings).  A `Restorer` call and a train step are
+# roots; the others hang under them.
+RESTORER_CALL = "restorer.call"          # Restorer.__call__: padding, tiling, crop
+RESTORER_CAPTURE = "restorer.capture"    # warm-up forwards and capture of a new shape
+RESTORER_COPY_IN = "restorer.copy_in"    # host array to the graph's static input
+RESTORER_REPLAY = "restorer.replay"      # the graph's launch
+RESTORER_COPY_OUT = "restorer.copy_out"  # the wait for the replay and the copy to the host
+TRAIN_STEP = "train.step"
+TRAIN_FORWARD = "train.forward"          # drop-path masks and the model's forward
+TRAIN_BACKWARD = "train.backward"        # zero_grad and the backward
+TRAIN_UPDATE = "train.update"            # the optimizer's and the LR scheduler's steps
 
 
 def kernel_work(work: Callable, *args) -> None:
@@ -44,7 +61,9 @@ def tensor_bytes(*tensors) -> int:
 def trace(log_dir: str):
     """Capture a `torch.profiler` trace (CPU, and CUDA where there is a
     card) around a block; writes `<log_dir>/trace.json` (Chrome/Perfetto
-    format) and yields the profiler."""
+    format), with the program's spans of the block (`span` records under
+    the profiler) drained into it as host events, and yields the
+    profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -52,6 +71,8 @@ def trace(log_dir: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    path = osp.join(log_dir, "trace.json")
+    first = len(_SPANS)
     with profile(activities=activities) as prof:
         if torch.cuda.is_available():
             # CUPTI has been seen to miss the first kernels of a session: one
@@ -61,7 +82,15 @@ def trace(log_dir: str):
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(osp.join(log_dir, "trace.json"))
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    block = _SPANS[first:]
+    del _SPANS[first:first + len(block)]
+    # torch writes each timestamp in microseconds after baseTimeNanoseconds
+    doc["traceEvents"] += _chrome_events(block, doc.get("baseTimeNanoseconds", 0))
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def device_memory_stats() -> Dict[str, Dict[str, float]]:
@@ -145,23 +174,91 @@ def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
     }
 
 
-class StepTimer:
-    """Rolling steps/sec over the last `window` ticks."""
+class Span(NamedTuple):
+    """One recorded span: times in ns of `time.time_ns()`, the clock
+    `torch.profiler` stamps host and device activity with; `parent` is
+    the enclosing span's id (None for a root), `root` the id of the
+    outermost span around it (its own for a root)."""
 
-    def __init__(self, window: int = 100):
-        self.window = window
-        self._times = []
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    root: int
 
-    def tick(self):
-        self._times.append(time.perf_counter())
-        if len(self._times) > self.window:
-            self._times.pop(0)
 
-    @property
-    def steps_per_sec(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        return (len(self._times) - 1) / (self._times[-1] - self._times[0])
+# Spans are recorded while recording is switched on (`record_spans`) or
+# while a torch profiler runs, so that a profiled window carries the
+# program's spans on the profiler's clock.  Off, `span` hands back one
+# shared no-op context: no clock read, no allocation, no lock.
+_recording = False
+_SPANS: List[Span] = []
+_IDS = count(1)
+_THREAD = threading.local()   # each thread's stack of open spans
+_OFF = contextlib.nullcontext()
+
+
+class _Open:
+    __slots__ = ("name", "stack", "id", "parent", "root", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_THREAD, "stack", None)
+        if stack is None:
+            stack = _THREAD.stack = []
+        self.stack = stack
+        self.id = next(_IDS)
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[0].id if stack else self.id
+        stack.append(self)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        self.stack.pop()
+        _SPANS.append(Span(self.name, self.t0, t1, self.id, self.parent, self.root))
+        return False
+
+
+def span(name: str):
+    """A context that records the block as the span `name`, under the span
+    open around it on this thread.  It never waits for the device."""
+    if not (_recording or _torch_profiler._is_profiler_enabled):
+        return _OFF
+    return _Open(name)
+
+
+def record_spans(on: bool = True) -> None:
+    """Switch span recording on or off; what was recorded stays until
+    drained."""
+    global _recording
+    _recording = on
+
+
+def recorded_spans() -> List[Span]:
+    """The spans recorded and not drained, in the order they ended."""
+    return list(_SPANS)
+
+
+def drain_spans() -> List[Span]:
+    """The spans recorded and not drained, in the order they ended; the
+    buffer is left empty."""
+    out = _SPANS[:]
+    del _SPANS[:len(out)]
+    return out
+
+
+def _chrome_events(spans: List[Span], base_ns: int) -> List[dict]:
+    """The spans as complete ("X") host events of a Chrome trace whose
+    timestamps are microseconds after base_ns, on this thread's track."""
+    pid, tid = os.getpid(), threading.get_native_id()
+    return [{"ph": "X", "cat": "grlir_torch", "name": s.name, "pid": pid, "tid": tid,
+             "ts": (s.start_ns - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+             "args": {"id": s.id, "parent": s.parent, "root": s.root}} for s in spans]
 
 
 class MetricsLogger:

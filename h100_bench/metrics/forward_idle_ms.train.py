@@ -1,0 +1,18 @@
+"""Mean over the traced window's train steps (the port's `train.step`
+spans) of the time the device sat idle inside the step's `train.forward`
+span (drawing the drop-path masks and dispatching the model's forward):
+the device ran out of queued work while the host was still there."""
+
+from h100_bench import program_spans as ps
+
+MOVES = "train_samples_s"
+
+
+def read(ctx):
+    if ctx.kind != "train" or not ctx.on_device():
+        return None
+    P = ps.port()
+    steps = ps.window_trees(ctx, P.TRAIN_STEP) if P else []
+    if not steps:
+        return None
+    return 1e3 * sum(ps.idle_inside(ctx.timeline, steps, {P.TRAIN_FORWARD})) / len(steps)

@@ -1,7 +1,8 @@
 """The host half on a card: the committed image fixtures decoded equal to
 their stored cv2 decodings, the committed orbax checkpoint loaded on the
-card equal to its .msgpack, and `profiling.trace`,
-`device_memory_stats` and `cost_analysis` on cuda:0.
+card equal to its .msgpack, and `profiling.trace` (with the program's
+spans of a `Restorer` call and a train step), `device_memory_stats` and
+`cost_analysis` on cuda:0.
 
 Needs an NVIDIA Hopper GPU and nvcc; skips without a CUDA device.  The file
 imports no JAX, cv2 or orbax, so it runs on a machine without them:
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from grlir_torch import host_io_cells as hc
+from grlir_torch.engines.inference import Restorer
+from grlir_torch.engines.train import TrainState, make_train_step
 from grlir_torch.models.grl import GRL
+from grlir_torch.optim import build_optimizer
 from grlir_torch.ops import block_attn as ba
 from grlir_torch.serve import load_checkpoint
 from grlir_torch.utils import profiling
@@ -80,6 +84,31 @@ def test_trace_and_memory_stats_on_cuda(cuda, tmp_path):
     stats = profiling.device_memory_stats()
     assert stats["cuda:0"]["bytes_in_use_mb"] > 0
     assert stats["cuda:0"]["peak_bytes_mb"] >= stats["cuda:0"]["bytes_in_use_mb"]
+
+    # the program's spans in the trace, on its time base: a warm Restorer
+    # call on its CUDA graph, and a train step
+    restorer = Restorer(model, cuda, scale=4)
+    img = np.random.default_rng(0).random((1, 32, 32, 3), np.float32)
+    restorer(img)
+    state = TrainState(model, *build_optimizer(model.parameters(), "adamw"))
+    batch = {"img_lq": x, "img_gt": torch.rand(1, 128, 128, 3, device=cuda)}
+    step = make_train_step({"l1": 1.0})
+    step(state, batch)
+    profiling.drain_spans()
+    with profiling.trace(str(tmp_path / "spans")):
+        restorer(img)
+        step(state, batch)
+    events = json.load(open(tmp_path / "spans" / "trace.json"))["traceEvents"]
+    ours = {e["name"]: e for e in events if e.get("cat") == "grlir_torch"}
+    assert set(ours) == {profiling.RESTORER_CALL, profiling.RESTORER_COPY_IN,
+                         profiling.RESTORER_REPLAY, profiling.RESTORER_COPY_OUT,
+                         profiling.TRAIN_STEP, profiling.TRAIN_FORWARD,
+                         profiling.TRAIN_BACKWARD, profiling.TRAIN_UPDATE}
+    out = ours[profiling.RESTORER_COPY_OUT]
+    d2h = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]
+           and out["ts"] <= e["ts"] <= out["ts"] + out["dur"]]
+    assert len(d2h) == 1 and d2h[0]["ts"] + d2h[0]["dur"] <= out["ts"] + out["dur"]
+    assert profiling.recorded_spans() == []
 
 
 @pytest.mark.cuda

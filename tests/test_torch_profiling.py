@@ -21,8 +21,7 @@ from grlir_torch.ops import attention as tatt
 from grlir_torch.ops import block_attn as ba
 from grlir_torch.ops import flash_attention as tfa
 from grlir_torch.utils import profiling as tprof
-from grlir_torch.utils.profiling import (MetricsLogger, StepTimer, cost_analysis,
-                                         device_memory_stats)
+from grlir_torch.utils.profiling import MetricsLogger, cost_analysis, device_memory_stats
 
 
 def test_cost_analysis_flops_scale_with_size():
@@ -35,15 +34,6 @@ def test_cost_analysis_flops_scale_with_size():
     assert 4 < big["flops"] / small["flops"] <= 16
     assert big["bytes_accessed"] > small["bytes_accessed"]
     assert big["arithmetic_intensity"] > 0
-
-
-def test_step_timer_rolls():
-    t = StepTimer(window=4)
-    assert t.steps_per_sec == 0.0
-    for _ in range(6):
-        t.tick()
-    assert len(t._times) == 4
-    assert t.steps_per_sec > 0
 
 
 def test_metrics_logger_jsonl(tmp_path):
