@@ -320,12 +320,10 @@ def ptxas_report(log: str):
             kind = max((k for k in KERNEL_KINDS if k in fn), key=len, default=fn)
             first = fn[fn.find(kind) + len(kind):] if kind in fn else ""
             bf16 = first.startswith("I13__nv_bfloat16") or kind in BF16_KINDS
-            # mma_attend_kernel<true>: B3's deferred normalisation
-            deferred = ", deferred" if first.startswith("ILb1E") else ""
-            # the head's columns in shared memory (B1's and B6/B7's tiles)
+            # the head's columns in shared memory (B1's and B3-B7's tiles)
             cols = first.split("Li", 1)[1].split("E", 1)[0] if "Li" in first else ""
             cols = f", {cols} columns" if cols.isdigit() else ""
-            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}{deferred}{cols}>"
+            name = f"{src}:{kind}<{'bf16' if bf16 else 'fp32'}{cols}>"
         elif "spill" in line and name:
             spill = line.strip()
         elif "registers" in line and name:

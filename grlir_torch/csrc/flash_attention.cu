@@ -7,8 +7,9 @@
 // against 512 keys, w2a 512 against 32) and GRL-base's 32x32 windows (N = 1024) and 64x64
 // stripes at anchor df 2 (1024 anchors, 4096 stripe tokens).  Its rounding is B4's: q and
 // k unit-normed in fp32 and rounded to the input type, the logit scale applied after the
-// product, the bias read in the input type (bf16) or fp32, the softmax normalised before
-// its probabilities are rounded to the input type, every product summed in fp32.
+// product, the bias read in the input type (bf16) or fp32, the softmax's probabilities
+// rounded to the input type (normalised first on the TPU and the CUDA-core route; the
+// tensor-core route scales the product by 1/sum after it), every product summed in fp32.
 //
 // Two kernels on one stream:
 //   flash_rows_kernel   one launch for q, k and v: a block takes 64 tokens of one (window,
@@ -19,24 +20,22 @@
 //                       the input type: for bf16 rows of head_cols(d) = 32 or 64 columns,
 //                       zeros past d, in 16-byte stores (the rows mma_attend_kernel reads
 //                       through ldmatrix); for fp32 rows of d;
-//   bf16: mma_attend_kernel<false> (stripe_attn_mma.cuh, B4's tensor-core attention)
-//                       one block of 4 warps per (window, head, 64 query rows), keys, values
-//                       and the bf16 bias tile streamed in chunks of 64 through shared
-//                       memory, q k^T and p v on mma.sync with fp32 accumulators, two passes
-//                       (max and sum, then probabilities normalised and rounded times v),
-//                       y written channel-major;
+//   bf16: mma_attend_kernel (mma_attend.cuh, B3's and B4's tensor-core attention)
+//                       one block per (window, head, 64 or 128 query rows), keys and values
+//                       streamed in chunks of 64 through shared memory, the bf16 bias read
+//                       into registers, q k^T and p v on mma.sync with fp32 accumulators,
+//                       one pass (an online softmax), y written channel-major;
 //   fp32: attend_kernel (large_attn.cuh) on CUDA cores, one lane per query row: TF32
 //                       products would not hold fp32.
 //
 // What bounds it on an H100: the operations, 4 N1 N2 d a window and head (logits and the
 // product with v) at the bf16 tensor-core rate, against the bytes of q, k, v, the bias and
-// y once.  The two-pass softmax recomputes the logits (6 N1 N2 d on the card), and a
-// block's 64 rows share each key chunk; the bias tile of a (head, row tile) is read by the
-// blocks of every window in flight at once (the window is the grid's fastest index), so it
-// comes from HBM about once.
+// y once.  A block's 64 or 128 rows share each key chunk; the bias tile of a (head, row
+// tile) is read by the blocks of every window in flight at once (the window is the grid's
+// fastest index), so it comes from HBM about once.
 #include <type_traits>
 
-#include "stripe_attn_mma.cuh"
+#include "mma_attend.cuh"
 
 namespace grlir {
 namespace {
@@ -131,7 +130,7 @@ int launch_flash(const void* q, const void* k, const void* v, const float* scale
   a.out = y;
   a.out_cm = 1;
   if constexpr (kTensorCores)
-    return launch_mma_attend<false>(a, groups, stream);
+    return launch_mma_attend(a, groups, stream);
   else
     return launch_attend<float, float, false>(a, groups, stream);
 }

@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the bf16 routes of the large-window half
 // (B3, window_half_large.cu), the resident-bias stripe half (B2,
-// stripe_half.cu) and the streamed-bias stripe half (B4,
-// stripe_half_large.cu): a projection and a two-pass attention on
+// stripe_half.cu), the streamed-bias stripe half (B4, stripe_half_large.cu)
+// and the rectangular flash attention (B5, flash_attention.cu): a
+// projection, the two-pass softmax helpers of B1's and B2's own kernels,
+// and (mma_attend.cuh) the one-pass attention of B3, B4 and B5, all on
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators), the products the
 // TPU kernels compute on their matrix unit with
 // dot_general(..., preferred_element_type=f32).  The fp32 routes keep the
@@ -18,23 +20,54 @@
 //                       past d) into a workspace [region][head][part]
 //                       [token][DP];
 //   pad_rows_kernel     rows of d values -> rows of DP (B4b's x1);
-//   mma_attend_kernel   one block of 4 warps per (region, head, 64 query
-//                       rows), 16 rows a warp.  Keys, values, the bias tile
-//                       (64 rows x 64 keys, bf16) and the key band ids
-//                       stream through shared memory in chunks of 64 with
-//                       cp.async, double-buffered, into fragments with
-//                       ldmatrix (.trans for v).  Pass 1 takes each row's
-//                       max and sum over all keys; pass 2 recomputes the
-//                       logits with the same mma sequence, so they are
-//                       bit-equal to pass 1's, and forms the probabilities
-//                       in registers as the A fragments of P v.
+//   mma_attend_kernel   (mma_attend.cuh) softmax(q k^T scale + bias + mask) v
+//                       for 64 or 128 query rows of one (region, head) a
+//                       block, 16 rows a warp, in one pass over the keys.
+//                       It replaces the TPU kernels `_window_block_kernel`'s
+//                       q-tiled branch (grlir/ops/pallas/block_attn.py:311,
+//                       B3), `_stripe_a2w_large_kernel` (:1037, B4a),
+//                       `_stripe_w2a_large_kernel` (:1104, B4b) and
+//                       `_flash_kernel` (grlir/ops/pallas/flash_attention.py:32,
+//                       B5), each after its own projection or prologue.
+//
+// mma_attend_kernel's design.  Keys and values stream through shared
+// memory in chunks of 64 keys, two stages filled with cp.async (one chunk
+// computed, the next in flight), into fragments with ldmatrix (.trans for
+// v).  The keys of a chunk sit in the logits' accumulators in an order
+// (`mma_key`) that gives each thread 16 consecutive keys of its rows, so it
+// reads its bias values straight from L2 into registers, 32 contiguous bytes
+// a row, one chunk ahead; k and v rows are stored in that order, so their
+// fragments load as before.  For each chunk a warp computes its 16 rows'
+// logits once, raises each row's running max (quad shuffles), rescales o
+// and l by 2^((m_old - m_new) log2 e) when the max rose in any row of the
+// warp, forms p = bf16(2^(s log2 e - m log2 e)) in registers as the A
+// fragments of P v, adds the unrounded p into l and accumulates o += p v in
+// fp32; y = o / l at the end.  Rows a block: 128 (8 warps) where the grid
+// of 128-row blocks fills every resident slot of the card (two blocks an
+// SM), else 64 (4 warps, four an SM), so a small grid keeps its SMs busy
+// (`attend_rows`, one rule for every launch, counted by the wrappers in
+// `attend_rows`).  Each chunk of k and v in shared memory then serves 128
+// rows.  Measured and left out (PERF.md): a third stage, two 16-row tiles a
+// warp, the bias through shared memory.
 //
 // Numerics of the TPU kernels: logit = fl(fl(acc * scale) + bias), -100
-// added where band ids differ; fp32 softmax on ex2.approx (the
-// special-function unit's 2^x) with log2(e) folded into one FMA per logit;
-// kDeferred (B3) rounds exp(s - m) to bf16 and scales the product by 1/sum,
-// else (B4) p = bf16(exp(s - m) * (1/sum)), normalised before rounding.
-// Outputs in the three layouts of AttnArgs.
+// added where band ids differ, keys past Nk at -inf; fp32 softmax on
+// ex2.approx (the special-function unit's 2^x) with log2(e) folded into one
+// FMA per logit; exp(s - m) rounded to bf16 for the product with v, which
+// is scaled by 1/sum after it, the TPU's order for B3.  B4 and B5's TPU
+// kernels normalise before they round (p = bf16(exp(s - m) / sum)): the
+// same softmax, the same bf16 operand of P v, rounded at a scale one factor
+// apart.  Outputs in the three layouts of AttnArgs.
+//
+// What bounds it on an H100, at GRL-base x4 SR 256^2 (d = 30 in rows of
+// DP = 32; 64 windows of 1024 tokens, or 16 stripes of 4096 tokens against
+// 1024 anchors; 3 heads): a call computes 201 M logits, each 128 bf16
+// tensor-core operations (q k^T and p v at DP = 32: 25.8 GFLOP, 26 us at
+// 989 TFLOP/s), one exp (48 us on the special-function units' 16 a clock an
+// SM) and about ten more fp32 instructions (scale, bias, mask, max, exponent,
+// sum, rounding: about 60 us of issue at 4 a clock an SM); the bias is 2
+// bytes a logit (403 MB from L2 a call; a head's 2 MB from HBM about once),
+// k and v 8 KB a chunk a block (201 MB from L2 at 128 rows a block).
 //
 // The bias is shared by every region, and the grid puts the region (B x
 // windows or stripes) fastest, then the row tile, then the head, so the
@@ -56,7 +89,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int kMmaThreads = 128;    // 4 warps
 constexpr int kMmaRows = 64;        // query rows (attention) or tokens (projection) a block
 constexpr int kMmaKeys = 64;        // keys a chunk
-constexpr int kLdB = kMmaKeys + 8;  // bf16 smem row of the bias tile: 144 B
 
 // bf16 smem row of q/k/v of a head padded to DP columns: 80 or 144 B, odd
 // multiples of 16 B, so ldmatrix reads them without bank conflicts
@@ -347,208 +379,6 @@ __device__ __forceinline__ void exp_times_v(const float (&s)[8][4], const float 
 }
 
 constexpr int kStages = 2;  // chunks in shared memory: one computed, the next in flight
-
-// Shared memory of mma_attend_kernel<DP>: the q tile, then kStages stages of
-// k, v, the bias tile and the key band ids.
-template <int DP>
-struct AttendSmem {
-  static constexpr int kStage = 2 * kMmaKeys * ld_k<DP>() * 2 + kMmaRows * kLdB * 2 + kMmaKeys * 4;
-  static constexpr int kQ = kMmaRows * ld_k<DP>() * 2;
-  static constexpr int kBytes = kQ + kStages * kStage;
-  static_assert(kStage % 16 == 0 && kQ % 16 == 0, "16-byte aligned stages");
-  static_assert(kMmaRows * (DP + 2) * 4 <= kStage, "output staging fits a stage");
-};
-
-// y = softmax(q . k^T * scale + bias + mask) v for 64 query rows of one
-// (region, head); see the note at the top.  a.q, a.k, a.v: rows of DP
-// bf16, zero past d; a.bias: (heads, Nq, Nk) bf16.  bias_vec: the bias
-// rows are 16-byte aligned (Nk % 8 == 0), else element loads.  Grid
-// (groups * ceil(Nq / 64) * heads), the region fastest.
-template <bool kDeferred, int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-mma_attend_kernel(AttnArgs a, int groups, int bias_vec) {
-  constexpr int kLdK = ld_k<DP>(), kStageBytes = AttendSmem<DP>::kStage;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  const int tiles = (a.Nq + kMmaRows - 1) / kMmaRows;
-  const int g = blockIdx.x % groups, rest = blockIdx.x / groups;
-  const int row0 = (rest % tiles) * kMmaRows, hh = rest / tiles;
-  const long long gh = (long long)g * a.heads + hh;
-  const bf16* qp = static_cast<const bf16*>(a.q) + gh * a.q_stride;
-  const bf16* kp = static_cast<const bf16*>(a.k) + gh * a.k_stride;
-  const bf16* vp = static_cast<const bf16*>(a.v) + gh * a.v_stride;
-  const bf16* bias = static_cast<const bf16*>(a.bias) + (size_t)hh * a.Nq * a.Nk;
-  const int* bq = a.band_q ? a.band_q + (size_t)(g % a.regions) * a.Nq : nullptr;
-  const int* bkg = a.band_k ? a.band_k + (size_t)(g % a.regions) * a.Nk : nullptr;
-  const float scale = a.scale ? a.scale[hh] : 1.f;
-  const int nch = (a.Nk + kMmaKeys - 1) / kMmaKeys, total = 2 * nch;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int gr = lane / 4, qd = lane % 4, mi = lane / 8;
-
-  bf16* qs = reinterpret_cast<bf16*>(mma_smem);  // [64][kLdK]
-  unsigned char* stages = mma_smem + AttendSmem<DP>::kQ;
-
-  // stage layout: k [64][kLdK], v [64][kLdK], bias [64][kLdB] bf16, band ids [64]
-  auto load = [&](int it) {
-    const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys;
-    bf16* ks = reinterpret_cast<bf16*>(stages + (it % kStages) * kStageBytes);
-    bf16* vs = ks + kMmaKeys * kLdK;
-    bf16* bs = vs + kMmaKeys * kLdK;
-    int* bks = reinterpret_cast<int*>(bs + kMmaRows * kLdB);
-    for (int i = tid; i < kMmaKeys * (DP / 8); i += kMmaThreads) {
-      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-      const bool ok = c0 + r < a.Nk;
-      const size_t off = (size_t)(ok ? c0 + r : 0) * DP + c;
-      cp_async16(ks + r * kLdK + c, kp + off, ok);
-      if (pass) cp_async16(vs + r * kLdK + c, vp + off, ok);
-    }
-    if (bias_vec) {
-      for (int i = tid; i < kMmaRows * (kMmaKeys / 8); i += kMmaThreads) {
-        const int r = i / (kMmaKeys / 8), c = (i % (kMmaKeys / 8)) * 8;
-        const bool ok = row0 + r < a.Nq && c0 + c < a.Nk;
-        cp_async16(bs + r * kLdB + c, ok ? bias + (size_t)(row0 + r) * a.Nk + c0 + c : bias, ok);
-      }
-    } else {
-      for (int i = tid; i < kMmaRows * kMmaKeys; i += kMmaThreads) {
-        const int r = i / kMmaKeys, c = i % kMmaKeys;
-        const bool ok = row0 + r < a.Nq && c0 + c < a.Nk;
-        bs[r * kLdB + c] = ok ? bias[(size_t)(row0 + r) * a.Nk + c0 + c] : __float2bfloat16(0.f);
-      }
-    }
-    if (bkg && tid < kMmaKeys) {
-      const bool ok = c0 + tid < a.Nk;
-      cp_async4(bks + tid, ok ? bkg + c0 + tid : bkg, ok);
-    }
-  };
-
-  for (int i = tid; i < kMmaRows * (DP / 8); i += kMmaThreads) {
-    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
-    const bool ok = row0 + r < a.Nq;
-    cp_async16(qs + r * kLdK + c, qp + (size_t)(ok ? row0 + r : 0) * DP + c, ok);
-  }
-  for (int it = 0; it < kStages - 1; ++it) {  // the q tile joins the first group
-    if (it < total) load(it);
-    cp_async_commit();
-  }
-
-  // this thread's rows (of the block): r0 = 16 warp + lane / 4 and r0 + 8
-  const int r0 = warp * 16 + gr;
-  int bqr[2] = {0, 0};
-  if (bq) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (row0 + r0 + 8 * r < a.Nq) bqr[r] = bq[row0 + r0 + 8 * r];
-  }
-  unsigned qa[DP / 16][4];
-  float m_t[2] = {-INFINITY, -INFINITY}, l_t[2] = {0.f, 0.f};  // this thread's keys
-  float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};                // the rows', pass 2
-  float o[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int it = 0; it < total; ++it) {
-    if (it + kStages - 1 < total) load(it + kStages - 1);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        ldmatrix_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + lane % 8) * kLdK + kk * 16 +
-                                (mi >> 1) * 8);
-    }
-    const int pass = it >= nch, c0 = (it - pass * nch) * kMmaKeys, nk = a.Nk - c0;
-    if (it == nch) finish_rows(m_t, l_t, mL, inv_l);
-    const bf16* ks = reinterpret_cast<const bf16*>(stages + (it % kStages) * kStageBytes);
-    const bf16* vs = ks + kMmaKeys * kLdK;
-    const bf16* bs = vs + kMmaKeys * kLdK;
-    const int* bks = reinterpret_cast<const int*>(bs + kMmaRows * kLdB);
-
-    // logits of this warp's 16 rows against the chunk's 64 keys: scale and
-    // bias, the shift mask, and keys past Nk drop out.  The products run
-    // over the whole chunk (its rows past Nk are zero-filled), so the loops
-    // carry no branch on nk
-    float s[8][4];
-    chunk_qk(qa, ks, kMmaKeys, lane, s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j * 8 + 2 * qd;
-      const __nv_bfloat162 b0 = *reinterpret_cast<const __nv_bfloat162*>(bs + r0 * kLdB + col);
-      const __nv_bfloat162 b1 =
-          *reinterpret_cast<const __nv_bfloat162*>(bs + (r0 + 8) * kLdB + col);
-      const float bv[4] = {__low2float(b0), __high2float(b0), __low2float(b1),
-                           __high2float(b1)};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(__fmul_rn(s[j][e], scale), bv[e]);
-    }
-    mask_logits(s, bkg ? bks : nullptr, bqr, nk, lane);
-    if (!pass) {
-      fold_rows(s, m_t, l_t);
-    } else {
-      exp_times_v<kDeferred>(s, mL, inv_l, vs, kMmaKeys, lane, o);
-    }
-    __syncthreads();  // the stage is consumed before the next load refills it
-  }
-
-  // stage the output tile in shared memory, then write it in the caller's
-  // layout with neighbouring threads on neighbouring addresses
-  float* os = reinterpret_cast<float*>(stages);                   // [64][DP + 1]
-  int* opix = reinterpret_cast<int*>(os + kMmaRows * (DP + 1));  // [64]: NHWC pixels
-  if (a.rw > 0 && tid < kMmaRows) {
-    const Regions reg{a.H, a.W, a.rh, a.rw, 0, 0};
-    opix[tid] = row0 + tid < a.Nq ? reg.pixel(g, row0 + tid) : 0;
-  }
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float y = o[n][e];
-      os[(r0 + 8 * (e >> 1)) * (DP + 1) + n * 8 + 2 * qd + (e & 1)] =
-          kDeferred ? y * inv_l[e >> 1] : y;
-    }
-  __syncthreads();
-  const int d = a.d;
-  bf16* out = static_cast<bf16*>(a.out);
-  for (int i = tid; i < kMmaRows * d; i += kMmaThreads) {
-    const int rr = a.out_cm ? i % kMmaRows : i / d, e = a.out_cm ? i / kMmaRows : i % d;
-    const int row = row0 + rr;
-    if (row >= a.Nq) continue;
-    size_t off;
-    if (a.rw > 0) {
-      off = (size_t)opix[rr] * (a.heads * d) + hh * d + e;
-    } else if (a.out_cm) {
-      off = ((size_t)gh * d + e) * a.Nq + row;
-    } else {
-      off = ((size_t)gh * a.Nq + row) * d + e;
-    }
-    out[off] = __float2bfloat16(os[rr * (DP + 1) + e]);
-  }
-}
-
-template <bool kDeferred, int DP>
-int launch_mma_attend_cols(const AttnArgs& a, int groups, cudaStream_t stream) {
-  auto kernel = mma_attend_kernel<kDeferred, DP>;
-  constexpr int kMmaAttendSmem = AttendSmem<DP>::kBytes;
-  const int err = set_smem(kernel, kMmaAttendSmem);
-  if (err) return err;
-  const int bias_vec =
-      a.Nk % 8 == 0 && reinterpret_cast<uintptr_t>(a.bias) % 16 == 0 ? 1 : 0;
-  const long long blocks = (long long)groups * ((a.Nq + kMmaRows - 1) / kMmaRows) * a.heads;
-  if (blocks > 0x7fffffffLL) return -1;
-  kernel<<<static_cast<unsigned>(blocks), kMmaThreads, kMmaAttendSmem, stream>>>(a, groups,
-                                                                                bias_vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch mma_attend_kernel over `groups` regions (B x regions), rows of
-// head_cols(a.d); returns 0, -1 (d > 64 or shared memory) or a cudaError_t.
-template <bool kDeferred>
-int launch_mma_attend(const AttnArgs& a, int groups, cudaStream_t stream) {
-  if (a.d > kMaxD) return -1;
-  if (a.d <= 32) return launch_mma_attend_cols<kDeferred, 32>(a, groups, stream);
-  return launch_mma_attend_cols<kDeferred, 64>(a, groups, stream);
-}
 
 template <int DP>
 int launch_mma_project_cols(const void* x, const void* wt, const float* bp, const float* scale0,

@@ -8,40 +8,36 @@
 //   a2w: x1 = softmax_N1(norm(a) . norm(k)^T * s1 + bias_a2w + mask) v
 //   w2a: y  = softmax_N2(norm(q) . norm(a)^T * s2 + bias_w2a + mask) x1
 // with the TPU kernels' numerics: biases in x's type, the logit scale
-// applied after the product, the softmax normalised before its
-// probabilities are rounded to x's type, and x1 written in x's type
-// between the two steps.  x is read NHWC with the cyclic stripe shift
-// applied while reading; the anchor arrives rolled; y is written NHWC in
-// rolled coordinates.  Horizontal and vertical stripes are the same code.
+// applied after the product, the softmax's probabilities rounded to x's
+// type (the TPU normalises them first; the bf16 route scales the product by
+// 1/sum after it, stripe_attn_mma.cuh), and x1 written in x's type between
+// the two steps.  x is read NHWC with the cyclic stripe shift applied while
+// reading; the anchor arrives rolled; y is written NHWC in rolled
+// coordinates.  Horizontal and vertical stripes are the same code.
 //
 // Each step projects once per stripe into a workspace that stays in L2 and
 // unit-norms the anchors once, then one attention kernel streams the keys
-// and the bias through shared memory in two passes (max and sum, then
-// normalised probabilities times v).  The work is 4 N1 N2 d multiply-adds a
-// stripe and head, plus a third again for the second logit pass.
+// and the bias in one pass (an online softmax).  The work is 4 N1 N2 d
+// multiply-adds a stripe and head.
 //
 // bf16 (the served route, `*_mma` entries): the products run on tensor
 // cores, mma.sync m16n8k16 with bf16 operands and fp32 sums, exactly the
-// TPU's matmul numerics (stripe_attn_mma.cuh).  At d = 32 the products are
-// short, so the per-logit fp32 work of the two passes (scale, bias, mask,
-// two exps) weighs as much as the mma issue rate; the bias is the one large
-// operand.  It is shared by every stripe, and the attention grid runs the B
-// x stripes readers of one (head, 64-row) bias tile next to each other, so
-// it comes from HBM about once a step and from L2 for the others: 25.2 MB a
-// step at GRL-base x4 SR 256^2 (3 x 1024 x 4096 bf16 each way) and 100.7 MB
-// at its 2 x 256^2 denoising tile, against 16 readers each.  Workspace rows
+// TPU's matmul numerics (stripe_attn_mma.cuh, mma_attend.cuh).  At d = 32
+// the products are short, so the per-logit fp32 work (scale, bias, mask,
+// max, exp, sum) weighs as much as the mma issue rate; the bias is the one
+// large operand.  It is shared by every stripe, and the attention grid runs
+// the B x stripes readers of one (head, row tile) bias tile next to each
+// other, so it comes from HBM about once a step and from L2 for the others:
+// 25.2 MB a step at GRL-base x4 SR 256^2 (3 x 1024 x 4096 bf16 each way)
+// and 100.7 MB at its 2 x 256^2 denoising tile, against 16 readers each.  Workspace rows
 // are zero-padded to 32 (64 for d > 32) so that every attention load is a
 // 16-byte cp.async: the projection and the anchors write rows of that
 // width, and the w2a step pads x1.
-// On an H100 80GB HBM3 (700 W power limit) a step at GRL-base x4 SR 256^2
-// takes 0.52 ms of device time, 0.44 ms of it the attention kernel, which
-// one chunk in flight a block and 16 warps an SM (128 registers) leave
-// short of both its L2 bandwidth and its issue rate (PERF.md).
 //
 // fp32 (`grlir_stripe_*_large`): the TPU kernel then computes in fp32, and
 // TF32 products would not hold it, so the route stays on CUDA cores
 // (large_attn.cuh): fp32 FMAs, one block per (stripe, head, 32 rows).
-#include "stripe_attn_mma.cuh"
+#include "mma_attend.cuh"
 
 namespace grlir {
 namespace {
@@ -164,7 +160,7 @@ int a2w_mma(const void* x, const void* anchor, const void* wt, const float* bp,
   if (err) return err;
   const AttnArgs a =
       a2w_args(ws_an, ws_kv, sizeof(bf16), dp, s1, bias, bands, bands_a, x1, G);
-  return launch_mma_attend<false>(a, G.B * a.regions, stream);
+  return launch_mma_attend(a, G.B * a.regions, stream);
 }
 
 int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
@@ -183,7 +179,7 @@ int w2a_mma(const void* x, const void* anchor, const void* x1, const void* wt,
   err = launch_pad_rows(x1, ws_x1, (long long)G.B * G.stripes() * G.heads * G.N2(), d, stream);
   if (err) return err;
   const AttnArgs a = w2a_args(ws_q, ws_an, ws_x1, dp, s2, bias, bands, bands_a, y, G);
-  return launch_mma_attend<false>(a, G.B * a.regions, stream);
+  return launch_mma_attend(a, G.B * a.regions, stream);
 }
 
 }  // namespace
@@ -251,4 +247,16 @@ extern "C" int grlir_stripe_w2a_large_mma(const void* x, const void* anchor, con
   const grlir::StripeGeom G{B, H, W, C, Cs, heads, sh, sw, df, shift_h, shift_w};
   return grlir::w2a_mma(x, anchor, x1, wt, bp, s2, bias, bands, bands_a, ws_an, ws_q, ws_x1, y,
                         Cp, G, static_cast<cudaStream_t>(stream));
+}
+
+// The query rows a block of mma_attend_kernel takes (64 or 128, into
+// *rows) for Nq query rows of `groups` regions (B x regions) and `heads`
+// heads of dim d: the rule every launch of B3's, B4's and B5's tensor-core
+// routes applies, for their launch counters.  Returns 0, -1 (d > 64 or
+// shared memory) or a cudaError_t.
+extern "C" int grlir_mma_attend_rows(long long Nq, long long groups, int heads, int d,
+                                     int* rows) {
+  int err = 0;
+  *rows = grlir::attend_rows(Nq, groups, heads, d, &err);
+  return err;
 }

@@ -18,25 +18,25 @@
 // row tiles against k and v resident in VMEM.  Here a projection kernel
 // writes q, k and v once to a workspace (it stays in the 50 MB L2 at
 // GRL-base's 256^2 tile), and an attention kernel streams k, v and the bias
-// through shared memory for tiles of query rows.  The work is 2 N^2 d
-// multiply-adds a window and head for the attention (plus a third again for
-// the second logit pass) and 3 N C d for the projection; the bias (3 x 2 MB
-// in bf16) is the one large operand, shared by every window.
+// through shared memory for tiles of query rows, in one pass.  The work is
+// 2 N^2 d multiply-adds a window and head for the attention and 3 N C d for
+// the projection; the bias (3 x 2 MB in bf16) is the one large operand,
+// shared by every window.
 //
 // bf16 (the served route, `grlir_window_half_large_mma`): B4's tensor-core
-// pipeline (stripe_attn_mma.cuh) with B3's rounding: mma.sync m16n8k16
-// with bf16 operands and fp32 sums; the projection folds the logit scale
-// into q after the unit norm and before the bf16 rounding, as the TPU does
-// (:272, :280), into workspace rows padded to 32 or 64 (zeros past d, so
-// that d = 30 keeps 16-byte copies); the
-// attention runs kDeferred, 64 query rows a block with the window the
-// grid's fastest index, so each bias tile comes from HBM about once and
-// from L2 for the other B x 64 windows.
+// pipeline (stripe_attn_mma.cuh, mma_attend.cuh) with B3's rounding:
+// mma.sync m16n8k16 with bf16 operands and fp32 sums; the projection folds
+// the logit scale into q after the unit norm and before the bf16 rounding,
+// as the TPU does (:272, :280), into workspace rows padded to 32 or 64
+// (zeros past d, so that d = 30 keeps 16-byte copies); the attention rounds
+// exp(s - max) and scales the product by 1/sum, 64 or 128 query rows a
+// block with the window the grid's fastest index, so each bias tile comes
+// from HBM about once and from L2 for the other B x 64 windows.
 //
 // fp32 (`grlir_window_half_large`): the TPU kernel then computes in fp32,
 // and TF32 products would not hold it, so the route stays on CUDA cores
 // (large_attn.cuh): fp32 FMAs, one block per (window, head, 32 rows).
-#include "stripe_attn_mma.cuh"
+#include "mma_attend.cuh"
 
 namespace grlir {
 namespace {
@@ -93,7 +93,7 @@ int window_half_large_mma(const void* x, const void* wt, const float* bp, const 
   if (err) return err;
   const AttnArgs a =
       window_args(ws, sizeof(bf16), head_cols(d), bias, bands, y, H, W, d, heads, wh, ww);
-  return launch_mma_attend<true>(a, B * a.regions, stream);
+  return launch_mma_attend(a, B * a.regions, stream);
 }
 
 }  // namespace

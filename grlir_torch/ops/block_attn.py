@@ -14,7 +14,9 @@ hand-written in CUDA with a plain PyTorch version beside it:
 All four take one of two routes by x's type, chosen before any launch:
 bf16 on tensor cores (csrc/stripe_attn_mma.cuh; B1 one fused kernel), fp32
 on CUDA cores; each wrapper counts its launches by route in
-`route_launches`.
+`route_launches`, and B3 and B4's steps count the launches of their
+tensor-core attention (csrc/mma_attend.cuh) by query rows a block in
+`attend_rows` (`attend_rows()` gives the rule).
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version.  `kernels=False` runs the plain
@@ -37,12 +39,16 @@ summed in fp32; softmax is fp32.  B1, B2 and B3 fold the scale into q (k for
 a2w) before the product and apply the 1/sum after the product with v; B3
 rounds its bias to bf16.  B4 scales the logits after the product, keeps its
 biases in x's type, normalises the softmax before rounding it, and writes
-x1 in x's type between its two steps.  Outputs are in rolled coordinates:
-the caller un-rolls them.
+x1 in x's type between its two steps.  On the card, B3's and B4's bf16
+routes share one one-pass attention kernel, which rounds exp(s - max)
+before it normalises, as B3's TPU kernel does.  Outputs are in rolled
+coordinates: the caller un-rolls them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -460,12 +466,14 @@ def _window_half_large_kernel(x, wqkv, bqkv, logit_scale, bias, window: Size2,
             _ptr(ws), _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "window_half_large", f"window {window} at d={d}")
     _count_route(window_half_large, x)
+    _count_attend(window_half_large, x, N, B * nW, h, d)
     kernel_work(_window_work, x, wqkv, bqkv, logit_scale, bias, window, bands)
     return y
 
 
 window_half_large.launches = 0
 window_half_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
+window_half_large.attend_rows = {64: 0, 128: 0}
 
 
 # ----------------------------------------------------------------- stripes
@@ -711,6 +719,34 @@ def _pack_w(w, p0: int, nparts: int) -> torch.Tensor:
     return wt
 
 
+@functools.lru_cache(maxsize=None)
+def _attend_rows(device: torch.device, Nq: int, groups: int, heads: int, d: int) -> int:
+    rows = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = cuda_build.library().grlir_mma_attend_rows(Nq, groups, heads, d,
+                                                          ctypes.byref(rows))
+    cuda_build.check(err, "mma_attend_kernel", f"Nq={Nq} at d={d}")
+    return rows.value
+
+
+def attend_rows(x: torch.Tensor, Nq: int, groups: int, heads: int, d: int) -> int:
+    """Query rows a block of the tensor-core attention kernel
+    (`csrc/mma_attend.cuh`) takes for Nq query rows of `groups` regions
+    and `heads` heads of dim d on x's card: 128 where the grid of 128-row
+    blocks fills every resident slot of the card, else 64.  The kernels'
+    launch applies the same rule (`grlir_mma_attend_rows`)."""
+    return _attend_rows(x.device, Nq, groups, heads, d)
+
+
+def _count_attend(fn, x: torch.Tensor, Nq: int, groups: int, heads: int,
+                  d: int) -> None:
+    """One launch of the tensor-core attention kernel by B3, a B4 step or
+    B5 (their bf16 route), counted in fn.attend_rows by the query rows a
+    block took."""
+    if x.dtype == torch.bfloat16:
+        fn.attend_rows[attend_rows(x, Nq, groups, heads, d)] += 1
+
+
 def _count_route(fn, x: torch.Tensor) -> None:
     """One launch of B1, B2, B3, a B4 step or B5 on the route x's type
     takes: bf16 on tensor cores, fp32 on CUDA cores."""
@@ -773,6 +809,7 @@ def _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
             *geom, _stream(x))
     cuda_build.check(err, "stripe_a2w_large", f"stripe {stripe}/df {df}")
     _count_route(stripe_a2w_large, x)
+    _count_attend(stripe_a2w_large, x, N2, B * nW, h, d)
     kernel_work(_stripe_work, 2, 1, x1, x, anchor, wqkv, bqkv, (s1,), (b1,), stripe,
                 df, bands, bands_a)
     return x1
@@ -780,6 +817,7 @@ def _stripe_a2w_large_kernel(x, anchor, wqkv, bqkv, logit_scale1, bias_a2w,
 
 stripe_a2w_large.launches = 0
 stripe_a2w_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
+stripe_a2w_large.attend_rows = {64: 0, 128: 0}
 
 
 def stripe_w2a_large(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
@@ -839,6 +877,7 @@ def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
             _ptr(y), *geom, _stream(x))
     cuda_build.check(err, "stripe_w2a_large", f"stripe {stripe}/df {df}")
     _count_route(stripe_w2a_large, x)
+    _count_attend(stripe_w2a_large, x, N1, B * nW, h, d)
     kernel_work(_stripe_work, 1, 1, y, x, anchor, wqkv, bqkv, (s2,), (b2,), stripe,
                 df, bands, bands_a, x1)
     return y
@@ -846,6 +885,7 @@ def _stripe_w2a_large_kernel(x, anchor, x1, wqkv, bqkv, logit_scale2, bias_w2a,
 
 stripe_w2a_large.launches = 0
 stripe_w2a_large.route_launches = {"tensor_core": 0, "cuda_core": 0}
+stripe_w2a_large.attend_rows = {64: 0, 128: 0}
 
 KERNELS = (window_half, stripe_half, window_half_large, stripe_a2w_large,
            stripe_w2a_large)
@@ -870,10 +910,12 @@ COUNTED = list(KERNELS)
 def reset_launches() -> None:
     """Set the launch count of every kernel in COUNTED (a kernel of a
     module not imported yet counts 0 already), the counts by route of
-    B1-B5 and unrouted_halves to 0."""
+    B1-B5, those by rows a block of B3-B5 and unrouted_halves to 0."""
     global unrouted_halves
     for k in COUNTED:
         k.launches = 0
         for route in getattr(k, "route_launches", ()):
             k.route_launches[route] = 0
+        for rows in getattr(k, "attend_rows", ()):
+            k.attend_rows[rows] = 0
     unrouted_halves = 0

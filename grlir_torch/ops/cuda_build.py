@@ -23,7 +23,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "grlir_torch"
 SOURCES = ("window_half.cu", "stripe_half.cu", "window_half_large.cu",
            "stripe_half_large.cu", "flash_attention.cu", "cosine_attention.cu")
-HEADERS = ("common.cuh", "large_attn.cuh", "mma_util.cuh", "stripe_attn_mma.cuh")
+HEADERS = ("common.cuh", "large_attn.cuh", "mma_util.cuh", "stripe_attn_mma.cuh",
+           "mma_attend.cuh")
 # -split-compile=0: each nvcc optimizes its source's kernels on every core
 # at once (cosine_attention.cu's four instances: 13.5 s -> 7.2 s on 8 cores)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +47,7 @@ SIGNATURES = {
     "grlir_stripe_a2w_large_mma": [_P] * 11 + [_I] * 12 + [_P],
     "grlir_stripe_w2a_large_mma": [_P] * 13 + [_I] * 12 + [_P],
     "grlir_flash_rect_attention": [_P] * 10 + [_I] * 7 + [_P],
+    "grlir_mma_attend_rows": [_L] * 2 + [_I] * 2 + [_P],
     "grlir_window_attention_qkv": _COSINE,
     "grlir_cosine_attention_split": _COSINE,
     "grlir_cosine_attention_packed": _COSINE,

@@ -13,13 +13,16 @@ and in fp32 otherwise; the {0, -100} shift mask comes from band ids; the
 softmax is fp32 and normalised before its probabilities are rounded to the
 input type; their product with v is summed in fp32 and rounded to the
 input type.  These are the rounding points of B4 (`block_attn`), whose
-attention kernel this one shares on the card.
+attention kernel this one shares on the card.  That kernel's one pass
+rounds exp(s - max) before it normalises, and scales the product with v
+by 1/sum (`csrc/mma_attend.cuh`).
 
 Dispatch (`kernels=True`, the default): a CUDA tensor launches the kernel or
 raises, on the route its type picks before any launch (bf16 on tensor
 cores, fp32 on CUDA cores; `flash_rect_attention.route_launches` counts
-them); a CPU tensor runs the plain version.  `kernels=False` runs the
-plain version on any device.
+them, and `flash_rect_attention.attend_rows` the tensor-core route's by
+query rows a block); a CPU tensor runs the plain version.  `kernels=False`
+runs the plain version on any device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from grlir_torch.ops.block_attn import (
     MAX_D,
     _band_mask,
     _check_inference,
+    _count_attend,
     _count_route,
     _head_cols,
     _ptr,
@@ -126,12 +130,14 @@ def flash_rect_attention(q, k, v, logit_scale, bias, bands_q=None,
         N2, int(q.dtype == torch.bfloat16), _stream(q))
     cuda_build.check(err, "flash_rect_attention", f"N1={N1}, N2={N2} at d={d}")
     _count_route(flash_rect_attention, q)
+    _count_attend(flash_rect_attention, q, N1, B * nW, h, d)
     kernel_work(_flash_work, *args)
     return y
 
 
 flash_rect_attention.launches = 0
 flash_rect_attention.route_launches = {"tensor_core": 0, "cuda_core": 0}
+flash_rect_attention.attend_rows = {64: 0, 128: 0}
 
 # each with a tensor-core and a CUDA-core route, as `block_attn.ROUTED`
 KERNELS = (flash_rect_attention,)

@@ -574,6 +574,20 @@ def test_reset_launches_clears_the_routes():
                for k in tba.ROUTED)
 
 
+def test_reset_launches_clears_the_attend_rows():
+    """reset_launches sets the counts by rows a block of B3, B4's two steps
+    and B5 (the tensor-core attention's 64- and 128-row blocks) to 0."""
+    from grlir_torch.ops import flash_attention as tfa
+
+    fns = (tba.window_half_large, tba.stripe_a2w_large, tba.stripe_w2a_large,
+           tfa.flash_rect_attention)
+    for k in fns:
+        k.attend_rows[64] += 2
+        k.attend_rows[128] += 1
+    tba.reset_launches()
+    assert all(k.attend_rows == {64: 0, 128: 0} for k in fns)
+
+
 def test_reset_launches_clears_every_kernel():
     """One call resets all nine counters: B1-B4 and their routes, B5 and
     its routes, B6/B7, and unrouted_halves."""

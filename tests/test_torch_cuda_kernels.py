@@ -30,7 +30,10 @@ shapes and at ragged ones: B5 (`flash_rect_attention`, bf16 on tensor
 cores, fp32 on CUDA cores, counted by route), B6
 (`fused_window_attention_qkv`), B7a (`fused_cosine_attention`, token-major
 and d-major operands) and B7b (`fused_cosine_attention_packed`, the same
-function as B7a).
+function as B7a).  The one-pass tensor-core attention under B3, B4 and B5
+takes 64 or 128 query rows a block by the grid's size: both are counted
+(`attend_rows`), at ragged shapes, with a running max that rises in the
+last key chunk and with rows whose keys are all band-masked.
 """
 
 import math
@@ -599,6 +602,83 @@ def test_flash_grlbase_bf16_draws(cuda, seed):
         assert torch.equal(st["y"], got.float()), step
         assert torch.equal(st["y_plain"], want.float()), step
         assert not b3_spread.stage_failures(st), (step, b3_spread.stage_line(st))
+
+
+# ------------------------------------- the one-pass attention kernel's rows
+
+def _rows_moved(fn, before):
+    """The launches of the tensor-core attention kernel by rows a block
+    that fn counted since `before` (a copy of its attend_rows)."""
+    return {r: n - before[r] for r, n in fn.attend_rows.items()}
+
+
+@pytest.mark.cuda
+def test_attend_rows_both_variants(cuda):
+    """The tensor-core attention takes 128 query rows a block where the grid
+    fills the card and stays at 64 where it would not, by the one rule the
+    launch and the counter share (`block_attn.attend_rows`).  128: B3 at
+    GRL-base x4 SR 256^2 (64 windows x 8 row tiles x 3 heads = 1536 blocks
+    of 128), on the stage gates; 64: B5 on 3 regions of 100 query rows at
+    one head (3 blocks)."""
+    x = torch.zeros(1, device=cuda, dtype=torch.bfloat16)
+    assert tba.attend_rows(x, 1024, 64, BH, BD) == 128
+    assert tba.attend_rows(x, 100, 3, 1, 40) == 64
+    before = dict(tba.window_half_large.attend_rows)
+    _run_window(cuda, torch.bfloat16, (32, 32), 16, 256, 256, tba.window_half_large, c=180,
+                batch=1)
+    assert _rows_moved(tba.window_half_large, before) == {64: 0, 128: 1}
+    rng = np.random.default_rng(10)
+    q, k, v = (_rand(rng, 1, 3, 1, 40, n, std=sd).to(cuda, torch.bfloat16)
+               for n, sd in ((100, 1.0), (300, 1.0), (300, 0.25)))
+    args = (q, k, v, _scales(1, cuda), 16 * torch.sigmoid(_rand(rng, 1, 100, 300)).to(cuda))
+    before = dict(tfa.flash_rect_attention.attend_rows)
+    got = _launched(tfa.flash_rect_attention, lambda: tfa.flash_rect_attention(*args))
+    assert _rows_moved(tfa.flash_rect_attention, before) == {64: 1, 128: 0}
+    with torch.no_grad():
+        _assert_close(got, tfa.flash_rect_attention(*args, kernels=False), torch.bfloat16)
+
+
+# (B, nW, h, d, N1, N2, case): the JPEG window's 1296 tokens (a ragged last
+# row tile and a last key chunk of 16) at 2 heads of d = 32 on 16 windows
+# (128 rows a block) and on 2 (64); 300 keys (a last chunk of 44) with the
+# largest logits of odd rows in the last chunk and those of even rows
+# rising in every chunk, so that o and l are rescaled (64 rows a block at
+# d = 30, 128 at d = 64); and rows whose keys are all band-masked
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,case", [
+    ((1, 16, 2, 32, 1296, 1296), "ragged"), ((1, 2, 2, 32, 1296, 1296), "ragged"),
+    ((2, 3, 3, 30, 256, 300), "late_max"), ((4, 16, 2, 64, 512, 300), "late_max"),
+    ((2, 3, 3, 30, 256, 300), "all_masked"), ((1, 16, 2, 32, 1296, 1296), "all_masked")])
+def test_attend_kernel_edges(cuda, shape, case):
+    """The one-pass tensor-core attention (B5's bf16 route) against the
+    plain version at ragged shapes, with its running max rising in the last
+    key chunk, and with rows whose every key is band-masked (-100 on every
+    logit leaves their softmax as it was); each launch counted on the rows
+    `block_attn.attend_rows` gives."""
+    B, nW, h, d, N1, N2 = shape
+    rng = np.random.default_rng(11)
+    q, k, v = (_rand(rng, B, nW, h, d, n, std=sd).to(cuda, torch.bfloat16)
+               for n, sd in ((N1, 1.0), (N2, 1.0), (N2, 0.25)))
+    bias = 16 * torch.sigmoid(_rand(rng, h, N1, N2))
+    bands = [_bands(rng, nW, n, cuda) for n in (N1, N2)]
+    if case == "late_max":
+        # odd rows: a step of 30 on the last chunk's keys; even rows: a ramp
+        # that raises the max in every chunk
+        last = (N2 - 1) // 64 * 64
+        bias[:, 1::2, last:] += 30.0
+        bias[:, 0::2] += torch.linspace(0.0, 24.0, N2)
+    if case == "all_masked":
+        bands[0][:, ::3] = 7   # keys' band ids are 0-2
+    bias = bias.to(cuda)
+    args = (q, k, v, _scales(h, cuda), bias, *bands)
+    rows = tba.attend_rows(q, N1, B * nW, h, d)
+    before = dict(tfa.flash_rect_attention.attend_rows)
+    got = _launched(tfa.flash_rect_attention, lambda: tfa.flash_rect_attention(*args))
+    assert _rows_moved(tfa.flash_rect_attention, before) == {r: int(r == rows)
+                                                             for r in (64, 128)}
+    with torch.no_grad():
+        want = tfa.flash_rect_attention(*args, kernels=False)
+    _assert_close(got, want, torch.bfloat16)
 
 
 # (N, heads, d): GRL-S's windows (8x8, 2 heads of 32), 16x16 windows at

@@ -86,3 +86,16 @@ def test_flash_dispatch_on_cpu():
     q = targs[0].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="no backward"):
         tfa.flash_rect_attention(q, *targs[1:])
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 32, 256, 64), (1, 2, 3, 30, 100, 300)])
+def test_cpu_dispatch_counts_no_attend_rows(shape):
+    """bf16 CPU tensors take the plain version: B5 counts no block of the
+    tensor-core attention kernel by its rows."""
+    args, bands = _case(shape, True, seed=3)
+    targs, tb = list(map(_t, args)), list(map(_t, bands))
+    bf = [t.bfloat16() for t in targs[:3]]
+    before = dict(tfa.flash_rect_attention.attend_rows)
+    got = tfa.flash_rect_attention(*bf, *targs[3:], *tb)
+    assert torch.equal(got, tfa.flash_rect_attention_ref(*bf, *targs[3:], *tb))
+    assert tfa.flash_rect_attention.attend_rows == before
