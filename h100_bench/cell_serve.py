@@ -22,8 +22,7 @@ import torch
 
 from h100_bench import check, inputs, program, traffic
 from h100_bench import trace as tr
-from h100_bench.reference import grl as ref
-from h100_bench.weights import make_weights
+from h100_bench.weights import cell_weights
 
 # eager calls a shape takes after its capture in set-up, so that the
 # window finds every replay path warm
@@ -122,7 +121,7 @@ def setup(cell, seed: int, device):
 
     mix, m = cell.traffic, cell.model()
     images = pools(mix, seed, device)
-    model = program.grl(cell, make_weights(m, seed, device), device).eval()
+    model = program.grl(cell, cell_weights(cell, seed, device), device).eval()
     restorer = Restorer(model, device, scale=m["upscale"], shape_bucket=mix["shape_bucket"])
     before = program.unrouted_halves()
     for pool in images:
@@ -136,13 +135,13 @@ def setup(cell, seed: int, device):
 def reference_numbers(cell, seed: int, images, kept, device, prec=None) -> Dict[str, float]:
     """The check's numbers of the kept answers against the reference's."""
     m = cell.model()
-    P = make_weights(m, seed, device)
+    P = cell_weights(cell, seed, device)
     bucket = cell.traffic["shape_bucket"]
     pairs = []
     for (s, j, _), got in kept.items():
         img = torch.as_tensor(images[s][j:j + 1], device=device)
         with torch.no_grad():
-            pairs.append((got, ref.restore(P, m, img, bucket, prec)))
+            pairs.append((got, cell.reference.restore(P, m, img, bucket, prec)))
     return check.serve_numbers(pairs)
 
 
@@ -180,6 +179,39 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dic
         "context": {"shapes": [tuple(mix["shapes"][s]) for s in got.shapes],
                     "unrouted_halves": unrouted},
     }
+
+
+def readings(cell, seeds, control_seeds, seconds, device):
+    """Set up once and take each seed's weights in place (the CUDA graphs
+    read them where they lie), serve a short window of the cell's own
+    traffic and check as many answers as a run keeps; on the control
+    seeds also the reference with fp8 products in the program's place."""
+    m, mix = cell.model(), cell.traffic
+    restorer, _, unrouted = setup(cell, seeds[0], device)
+    yield {"workload": cell.name, "unrouted_halves": unrouted}
+    for seed in seeds:
+        t = time.perf_counter()
+        restorer.model.load_state_dict(cell_weights(cell, seed, device))
+        images = pools(mix, seed, device)
+        got = serve(restorer, mix, images, seed, seconds, device, False)
+        yield {"kind": "program", "seed": seed, "answers": len(got.kept),
+               "numbers": reference_numbers(cell, seed, images, got.kept, device),
+               "seconds": time.perf_counter() - t}
+        if seed in control_seeds:
+            P, fp8 = cell_weights(cell, seed, device), {}
+            for key in got.kept:
+                img = torch.as_tensor(images[key[0]][key[1]:key[1] + 1], device=device)
+                with torch.no_grad():
+                    fp8[key] = cell.reference.restore(P, m, img, mix["shape_bucket"],
+                                                      "fp8").cpu().numpy()
+            yield {"kind": "control", "seed": seed,
+                   "numbers": reference_numbers(cell, seed, images, fp8, device)}
+
+
+def tiny_traffic(mix: dict) -> dict:
+    """One or two small shapes, two images each, buckets of 16."""
+    return {**mix, "shapes": [[32, 32]] if len(mix["shapes"]) == 1 else [[32, 32], [24, 40]],
+            "pool": 2, "shape_bucket": 16, "sample_per_shape": 1}
 
 
 def free(device) -> None:

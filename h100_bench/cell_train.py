@@ -18,14 +18,12 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.optim.optimizer import (register_optimizer_step_post_hook,
-                                   register_optimizer_step_pre_hook)
 
 from h100_bench import check, inputs, program, traffic
 from h100_bench import trace as tr
 from h100_bench.cell_serve import free
 from h100_bench.reference import train as ref_train
-from h100_bench.weights import make_weights
+from h100_bench.weights import cell_weights
 
 
 def pool(mix: dict, seed: int, device):
@@ -90,20 +88,21 @@ def first_steps(state, step, mix, data, P0) -> dict:
 
 def reference(cell, seed: int, data, device, prec=None) -> dict:
     """The reference's checked steps from the same weights and rows."""
-    mix, m = cell.traffic, cell.model()
-    P = make_weights(m, seed, device)
+    mix, m, net = cell.traffic, cell.model(), cell.reference
+    P = cell_weights(cell, seed, device)
     steps = mix["checked_steps"]
     batches = [(b["img_lq"], b["img_gt"]) for b in
                (batch(mix, data, k) for k in range(steps))]
-    masks = ref_train.drop_masks(m, mix["batch"], steps, mask_seed(seed))
-    return ref_train.run(P, m, batches, masks, mix["optimizer"], mix["lr_scheduler"], prec)
+    masks = ref_train.drop_masks(net, m, mix["batch"], steps, mask_seed(seed))
+    return ref_train.run(net, P, m, batches, masks, mix["optimizer"], mix["lr_scheduler"],
+                         prec)
 
 
 def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dict:
     device = torch.device(device)
-    mix, m = cell.traffic, cell.model()
+    mix = cell.traffic
     data = pool(mix, seed, device)
-    P0 = make_weights(m, seed, device)
+    P0 = cell_weights(cell, seed, device)
     state, step = build(cell, P0, seed, device)
     built = time.perf_counter()
     before = program.unrouted_halves()
@@ -122,8 +121,6 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dic
     window = min(seconds, mix["trace_seconds"]) if traced else seconds
     prof = tr.profiler(device) if traced else None
     marks = tr.Marks()
-    hooks = [register_optimizer_step_pre_hook(lambda *a: marks.start("optimizer")),
-             register_optimizer_step_post_hook(lambda *a: marks.stop("optimizer"))]
     losses, k0 = [], k
     if prof is not None:
         prof.start()
@@ -138,8 +135,6 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dic
         torch.cuda.synchronize(device)
     window_s = time.perf_counter() - w0
     marks.stop(tr.WINDOW)
-    for h in hooks:
-        h.remove()
     timeline = None
     if prof is not None:
         prof.stop()
@@ -165,3 +160,61 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dic
         "spans": ["step"],
         "context": {"steps": steps, "unrouted_halves": unrouted},
     }
+
+
+def worst(got: dict, want: dict, n: int = 4) -> dict:
+    """The look behind a training reading: each step's loss gap, the
+    parameters with the largest gradient and change gaps (gap, reference
+    norm, program norm), the median parameter's gaps and the parameters
+    left out as round-off."""
+    g, d = want["grad_norms"], want["delta_norms"]
+    keys = check.compared(want)
+    out = {"step_loss_gaps": [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])],
+           "left_out": sorted(set(g) - set(keys))}
+    for name, gaps, norms, mine in (
+            ("grad", check.leaf_gaps(got["grad_norms"], g, g), g, got["grad_norms"]),
+            ("delta", check.leaf_gaps(got["delta_norms"], d, keys), d, got["delta_norms"])):
+        top = sorted(gaps, key=gaps.get, reverse=True)[:n]
+        out[f"{name}_worst"] = [[k, gaps[k], norms[k], mine[k]] for k in top]
+        out[f"{name}_median_gap"] = float(sorted(gaps.values())[len(gaps) // 2])
+    return out
+
+
+def readings(cell, seeds, control_seeds, seconds, device):
+    """Each seed's checked steps against the reference, with the look; on
+    the control seeds also the reference with fp8 products in the
+    program's place, and the program's step on half of each batch, the
+    mean taken over the rest.  Training needs no window: `seconds` is
+    not read."""
+    mix = cell.traffic
+    half = mix["batch"] // 2
+    for seed in seeds:
+        t = time.perf_counter()
+        data = pool(mix, seed, device)
+        want = reference(cell, seed, data, device)
+        P0 = cell_weights(cell, seed, device)
+        state, step = build(cell, P0, seed, device)
+        got = first_steps(state, step, mix, data, P0)
+        yield {"kind": "program", "seed": seed, "numbers": check.train_numbers(got, want),
+               "look": worst(got, want), "seconds": time.perf_counter() - t}
+        del state, step
+        if seed in control_seeds:
+            fp8 = reference(cell, seed, data, device, prec="fp8")
+            yield {"kind": "control", "seed": seed, "numbers": check.train_numbers(fp8, want),
+                   "look": worst(fp8, want)}
+            state, step = build(cell, P0, seed, device)
+
+            def half_step(st, b):
+                return step(st, {k: v[:half] for k, v in b.items()})
+
+            bad = first_steps(state, half_step, mix, data, P0)
+            yield {"kind": "fault_half_batch", "seed": seed,
+                   "numbers": check.train_numbers(bad, want), "look": worst(bad, want)}
+            del state, step
+        del P0, data
+        free(device)
+
+
+def tiny_traffic(mix: dict) -> dict:
+    """Batches of two 16x16 LR patches from a pool of four, one warm-up step."""
+    return {**mix, "batch": 2, "lr_patch": 16, "pool": 4, "warmup_steps": 1}

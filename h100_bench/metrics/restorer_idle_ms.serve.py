@@ -1,7 +1,7 @@
 """Median over the traced window's `Restorer` calls (the port's
 `restorer.call` spans) of the time inside each with nothing running on the
-device: the program's counterpart of `restorer_host_ms.serve`, which reads
-the harness's span around the call."""
+device: the host's own time of a request (numpy copy, padding, copies in
+and out, waits)."""
 
 import statistics
 

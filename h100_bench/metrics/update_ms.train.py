@@ -1,7 +1,5 @@
 """Mean over the traced window's train steps of the port's `train.update`
-span (the optimizer's and the LR scheduler's steps) on the host's clock:
-the program's counterpart of `optimizer_ms.train`, which reads torch's
-global optimizer step hooks."""
+span (the optimizer's and the LR scheduler's steps) on the host's clock."""
 
 from h100_bench import program_spans as ps
 

@@ -10,11 +10,10 @@ p <- p * (1 - lr * wd) before the update, every parameter in one group.
 from __future__ import annotations
 
 import bisect
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence
 
 import torch
-
-from h100_bench.reference import grl
 
 
 def multi_step_lr(opt: dict, sched: dict, step: int) -> float:
@@ -26,12 +25,14 @@ def multi_step_lr(opt: dict, sched: dict, step: int) -> float:
     return base * sched["gamma"] ** bisect.bisect_right(sorted(sched["milestones"]), step)
 
 
-def drop_masks(m: dict, batch: int, steps: int, seed: int) -> List[torch.Tensor]:
+def drop_masks(net: ModuleType, m: dict, batch: int, steps: int,
+               seed: int) -> List[torch.Tensor]:
     """(blocks, 2, batch) stochastic-depth masks of each step: block i keeps
     a branch with probability 1 - its rate, from uniform float64 draws of a
     CPU generator seeded with the run's mask seed, one (blocks, 2, batch)
-    draw a step."""
-    rates = torch.tensor(grl.drop_rates(m), dtype=torch.float64)
+    draw a step.  `net`: the reference module of the forward (its
+    `drop_rates`)."""
+    rates = torch.tensor(net.drop_rates(m), dtype=torch.float64)
     g = torch.Generator().manual_seed(seed)
     return [torch.rand((len(rates), 2, batch), generator=g, dtype=torch.float64)
             < (1.0 - rates)[:, None, None] for _ in range(steps)]
@@ -41,10 +42,11 @@ def leaf_norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return {k: float(torch.linalg.vector_norm(v.double())) for k, v in tensors.items()}
 
 
-def run(P0: Dict[str, torch.Tensor], m: dict, batches: Sequence, masks: Sequence,
+def run(net: ModuleType, P0: Dict[str, torch.Tensor], m: dict, batches: Sequence, masks: Sequence,
         opt: dict, sched: dict, prec: Optional[str] = None) -> dict:
-    """len(batches) steps from P0: (lq, gt) NHWC batches, masks from
-    `drop_masks`.  Returns each step's loss, the first step's gradient
+    """len(batches) steps from P0 of the forward of the reference module
+    `net` (its `forward` and `exact_fp32`): (lq, gt) NHWC batches, masks
+    from `drop_masks`.  Returns each step's loss, the first step's gradient
     norm a parameter, and the norm of each parameter's change after the
     last step."""
     P = {k: v.detach().clone().requires_grad_(True) for k, v in P0.items()}
@@ -53,9 +55,9 @@ def run(P0: Dict[str, torch.Tensor], m: dict, batches: Sequence, masks: Sequence
     mom = {k: torch.zeros_like(v) for k, v in P.items()}
     var = {k: torch.zeros_like(v) for k, v in P.items()}
     losses, first = [], None
-    with grl.exact_fp32():
+    with net.exact_fp32():
         for t, ((lq, gt), keep) in enumerate(zip(batches, masks), start=1):
-            pred = grl.forward(P, m, lq, keep=keep.to(lq.device), prec=prec, recompute=True)
+            pred = net.forward(P, m, lq, keep=keep.to(lq.device), prec=prec, recompute=True)
             loss = torch.mean(torch.abs(pred - gt))
             grads = dict(zip(P, torch.autograd.grad(loss, list(P.values()))))
             losses.append(float(loss.detach()))

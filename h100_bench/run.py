@@ -56,11 +56,10 @@ def execute(cell, seed: int, seconds: float, traced: bool, device, t0: float) ->
     printing), the compared numbers and the log line."""
     import torch
 
-    from h100_bench import cell_serve, cell_train, check
+    from h100_bench import check
     from h100_bench.metrics_context import Context
 
-    runner = {"serve": cell_serve.run, "train": cell_train.run}[cell.kind]
-    r = runner(cell, seed, seconds, traced, device, t0)
+    r = cell.runner.run(cell, seed, seconds, traced, device, t0)
     ok, shown = check.judge(r["numbers"], cell.limits)
     dev = torch.device(device)
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -7,7 +7,7 @@ an untraced run records none."""
 import pytest
 import torch
 
-from h100_bench import cell_serve, cell_train, program_spans, run, spec
+from h100_bench import program_spans, run, spec
 from h100_bench import trace as tr
 from h100_bench.metrics_context import Context
 from h100_bench.tests.tiny import tiny_cell
@@ -145,8 +145,7 @@ def test_an_untraced_run_records_no_span(workload, recorder_off):
 @pytest.mark.parametrize("workload", [SERVE, TRAIN])
 def test_a_traced_run_records_each_call_or_step_in_its_window(workload, recorder_off):
     cell = tiny_cell(workload, dtype="float32")
-    runner = cell_serve.run if cell.kind == "serve" else cell_train.run
-    r = runner(cell, SEED, 0.5, True, "cpu", 0.0)
+    r = cell.runner.run(cell, SEED, 0.5, True, "cpu", 0.0)
     ctx = Context(cell, r["timeline"], r["context"])
     root = P.RESTORER_CALL if cell.kind == "serve" else P.TRAIN_STEP
     trees = program_spans.window_trees(ctx, root)

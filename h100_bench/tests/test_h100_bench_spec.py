@@ -9,7 +9,6 @@ import pytest
 import torch
 
 from h100_bench import spec
-from h100_bench.reference import grl as ref
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -85,7 +84,7 @@ def test_reference_names_every_parameter_of_the_port(config):
         cfg = GRLConfig(**{k: tuple(v) if isinstance(v, list) else v
                            for k, v in m.items() if k in known})
         port = GRL(cfg, device="meta").state_dict()
-        mine = {n: s for n, s, _ in ref.param_spec(m)}
+        mine = {n: s for n, s, _ in cell.reference.param_spec(m)}
         assert set(mine) == set(port)
         assert all(tuple(port[n].shape) == s for n, s in mine.items())
         assert sum(torch.Size(s).numel() for s in mine.values()) == cell.config["parameters"]

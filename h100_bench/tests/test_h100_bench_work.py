@@ -10,7 +10,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from h100_bench import work
 from h100_bench.reference import grl as ref
 from h100_bench.tests.tiny import tiny_cell
-from h100_bench.weights import make_weights
+from h100_bench.weights import cell_weights
 
 CASES = [("grl_s_x4.sr_256", (64, 128)), ("grl_base_x4.sr_256", (32, 48)),
          ("grl_base_x4.train_sr_p64", (32, 32))]
@@ -18,8 +18,8 @@ CASES = [("grl_s_x4.sr_256", (64, 128)), ("grl_base_x4.sr_256", (32, 48)),
 
 @pytest.mark.parametrize("workload,hw", CASES)
 def test_model_flops_match_a_count_of_the_forward(workload, hw):
-    m = tiny_cell(workload).model()
-    P = make_weights(m, 11, "cpu")
+    cell = tiny_cell(workload)
+    m, P = cell.model(), cell_weights(cell, 11, "cpu")
     x = torch.rand(2, *hw, 3)
     with FlopCounterMode(display=False) as fc, torch.no_grad():
         ref.forward(P, m, x)
@@ -34,8 +34,8 @@ def cpb_ops(entries, heads):
 
 @pytest.mark.parametrize("workload,hw", CASES)
 def test_attention_halves_match_a_count_of_each_half(workload, hw):
-    m = tiny_cell(workload).model()
-    P = make_weights(m, 12, "cpu")
+    cell = tiny_cell(workload)
+    m, P = cell.model(), cell_weights(cell, 12, "cpu")
     (H, W), B, C = hw, 2, m["embed_dim"]
     df, win = m["anchor_window_down_factor"], m["window_size"]
     x = torch.rand(B, H, W, C)

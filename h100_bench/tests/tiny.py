@@ -1,7 +1,8 @@
 """A cell of BENCHMARK.json cut to a size the CPU runs in a second: the
 same kinds of layers (window and anchored stripe halves, CAB, the x4
-tail), one stage of four blocks at embed 24, a few small images or
-patches.  Its limits are the cell's own."""
+tail), one stage of four blocks at embed 24, and the traffic its runner's
+`tiny_traffic` cuts to a few small images or patches.  Its limits are the
+cell's own."""
 
 from __future__ import annotations
 
@@ -20,11 +21,5 @@ def tiny_cell(workload: str, dtype: str = "bfloat16"):
         if g["stripe_groups"][1] is None:
             g["stripe_size"] = [16, 16]
     cell.config = cfg
-    t = dict(cell.traffic)
-    if t["kind"] == "serve":
-        t.update(shapes=[[32, 32]] if len(t["shapes"]) == 1 else [[32, 32], [24, 40]],
-                 pool=2, shape_bucket=16, sample_per_shape=1)
-    else:
-        t.update(batch=2, lr_patch=16, pool=4, warmup_steps=1)
-    cell.traffic = t
+    cell.traffic = cell.runner.tiny_traffic(cell.traffic)
     return cell

@@ -5,9 +5,9 @@ On the card the profiler records the CUDA activities alone (kernels,
 copies, fills, and the host's CUDA runtime calls): recording every host
 operation as well would slow the host's dispatch by more than the
 device's work in a step, and the traced window would stand for another
-program.  The harness marks its window, each request or step, and the
-optimizer's step with its own ranges (`Marks`, the host's realtime clock,
-the clock the profiler's timestamps are on).  Busy time is the union of
+program.  The harness marks its window and each request or step with its
+own ranges (`Marks`, the host's realtime clock, the clock the profiler's
+timestamps are on).  Busy time is the union of
 device intervals inside the window; idle gaps are the window less that
 union, each labelled by the harness's range and the innermost host call
 running at the gap's middle ("python" where none is).
