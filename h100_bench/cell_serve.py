@@ -24,6 +24,9 @@ from h100_bench import check, inputs, program, traffic
 from h100_bench import trace as tr
 from h100_bench.weights import cell_weights
 
+# the numbers the check compares (`check.serve_numbers`)
+NUMBERS = ("rms_err", "max_err")
+
 # eager calls a shape takes after its capture in set-up, so that the
 # window finds every replay path warm
 WARM_CALLS = 2

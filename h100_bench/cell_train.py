@@ -25,6 +25,9 @@ from h100_bench.cell_serve import free
 from h100_bench.reference import train as ref_train
 from h100_bench.weights import cell_weights
 
+# the numbers the check compares (`check.train_numbers`)
+NUMBERS = ("loss_gap", "grad_gap", "delta_gap", "delta_gap_median")
+
 
 def pool(mix: dict, seed: int, device):
     """(LR, GT) NHWC pairs of the pool."""

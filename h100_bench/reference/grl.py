@@ -20,6 +20,7 @@ operands to float8 e4m3 with a per-tensor scale, the benchmark's control.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -129,6 +130,20 @@ def param_spec(m: dict) -> List[Tuple[str, Tuple[int, ...], str]]:
         conv(f"upsample.up.{2 * i}", 4 * nf, nf)
     conv("conv_last", m["in_channels"], nf)
     return spec
+
+
+def tiny_model(config: dict) -> dict:
+    """The configuration cut to a size the CPU rehearsal runs in a second:
+    the same kinds of layers (window and anchored stripe halves, CAB, the
+    tail), one stage of four blocks at embed 24, 2+2 heads, window 8, and
+    stripes 16x16 where a geometry's stripes are not grouped."""
+    cfg = copy.deepcopy(config)
+    cfg["model"].update(embed_dim=24, depths=[4], num_heads_window=[2], num_heads_stripe=[2])
+    for g in cfg["geometry"].values():
+        g["window_size"] = 8
+        if g["stripe_groups"][1] is None:
+            g["stripe_size"] = [16, 16]
+    return cfg
 
 
 def check_supported(m: dict) -> None:

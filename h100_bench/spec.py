@@ -25,12 +25,18 @@ A runner, cell_<kind>.py, defines:
   readings(cell, seeds, control_seeds, seconds, device) -> iterable of dicts
       the readings the limits are set from (`calibrate.py` prints each);
   tiny_traffic(traffic) -> dict
-      the mix cut for the CPU rehearsal (`tests/tiny.py`).
+      the mix cut for the CPU rehearsal (`tests/tiny.py`);
+  NUMBERS
+      the names of the numbers its check produces: the keys of "numbers",
+      and of every limits/<workload>.json of its kind.
 
 A reference module defines `param_spec(model) -> [(name, shape, kind)]`,
 from which `weights.cell_weights` draws both sides' parameters, and may
-define `KINDS`, {kind: (centre, spread)} merged over `weights.KINDS`;
-the rest is what its runner calls.
+define `KINDS`, {kind: (centre, spread)} merged over `weights.KINDS`,
+and `tiny_model(config) -> config`, the configuration cut for the CPU
+rehearsal (without it the rehearsal runs the model whole); the rest is
+what its runner calls.  `tests/cells.py` holds a cell to these contracts
+from its files alone.
 """
 
 from __future__ import annotations

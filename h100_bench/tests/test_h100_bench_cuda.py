@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from h100_bench import run, spec
-from h100_bench.tests.test_h100_bench_rehearsal import well_formed
+from h100_bench.tests.cells import well_formed
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 

@@ -7,9 +7,10 @@ an untraced run records none."""
 import pytest
 import torch
 
-from h100_bench import program_spans, run, spec
+from h100_bench import program_spans, spec
 from h100_bench import trace as tr
 from h100_bench.metrics_context import Context
+from h100_bench.tests import cells
 from h100_bench.tests.tiny import tiny_cell
 from grlir_torch.utils import profiling as P
 
@@ -135,11 +136,9 @@ def recorder_off():
     P.drain_spans()
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in spec.benchmark()["workloads"]])
-def test_an_untraced_run_records_no_span(workload, recorder_off):
-    done = run.execute(tiny_cell(workload, dtype="float32"), SEED, 0.3, False, "cpu", 0.0)
-    assert done["result"]["attempted"] > 0
-    assert P.recorded_spans() == []
+@pytest.mark.parametrize("workload", cells.workloads())
+def test_an_untraced_run_records_no_span(workload):
+    cells.no_span_untraced(spec.ROOT, workload, SEED)
 
 
 @pytest.mark.parametrize("workload", [SERVE, TRAIN])
